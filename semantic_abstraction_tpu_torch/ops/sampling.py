@@ -1,15 +1,43 @@
-"""Interpolation matrices for the relevancy path (numpy, host-side).
+"""Interpolation: the relevancy path's resize matrices and the implicit
+decoder's trilinear volume sampler.
 
-A copy of ``semantic_abstraction_tpu.ops.sampling._cubic_kernel`` and
-``resize_matrix``: the port imports nothing of the JAX package. The
-matrices are built once per (in, out, method) on the host and applied on
-the device as two ``torch.matmul`` calls.
+- ``resize_matrix``: a copy of ``semantic_abstraction_tpu.ops.sampling``'s
+  ``_cubic_kernel`` and ``resize_matrix`` (the port imports nothing of the
+  JAX package). The matrices are built once per (in, out, method) on the
+  host and applied on the device as two ``torch.matmul`` calls.
+- ``grid_sample_3d``: counterpart of the JAX ``grid_sample_3d`` (dense
+  NCDHW form), torch ``grid_sample`` with border padding and
+  ``align_corners=True``.
 """
 from __future__ import annotations
 
 import functools
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def grid_sample_3d(vol: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Sample a (B, C, D, H, W) volume at (B, N, 3) normalized coords in
+    [-1, 1]; returns (B, N, C) in the volume's dtype.
+
+    coords[..., 0] indexes W (the last axis), [..., 1] H, [..., 2] D, as in
+    torch's ``grid_sample``. The decoder passes (x, y, z)-ordered coords of
+    an (x, y, z)-laid-out volume, so world-x indexes the last axis: the
+    reference's quirk, baked into its checkpoints.
+
+    The volume is sampled as f32 with f32 coords and the result cast back:
+    ``grid_sample`` takes its grid in the volume's dtype, and a bf16 grid
+    would put the normalized coords on a 2^-7 lattice (up to half a voxel
+    off at 128^3), while the JAX sampler computes its indices and fractions
+    in f32. The coords carry no gradient.
+    """
+    b, n = coords.shape[:2]
+    grid = coords.detach().float().reshape(b, n, 1, 1, 3)
+    out = F.grid_sample(vol.float(), grid, mode="bilinear",
+                        padding_mode="border", align_corners=True)
+    return out.reshape(b, -1, n).transpose(1, 2).to(vol.dtype)
 
 
 def _cubic_kernel(x: np.ndarray, a: float = -0.5) -> np.ndarray:

@@ -1,0 +1,137 @@
+"""Single-card train and eval steps.
+
+Counterpart of ``semantic_abstraction_tpu/runtime/train.py`` without a
+mesh: one step is forward, backward, gradient clipping to global norm 2.0
+(reference utils.py:413-421) and a LAMB update on the HF-style schedule
+(utils.py:260-274). The model's parameters stay f32; the forward runs in
+``compute_dtype`` (bf16 on the card) and the loss in f32. The call shapes
+are the JAX package's::
+
+    tx = make_optimizer(num_training_steps=1000)
+    state = init_train_state(model, tx)
+    step = make_train_step(ovssc_forward_loss, cfg, tx)
+    state, stats = step(state, batch)   # stats: loss, accuracy, grad_norm
+
+Unlike JAX, the state is updated in place (the module and the optimizer
+are mutable); the step returns it for the same call shape. The stats are
+0-dim tensors on the model's device, read back only by the caller.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterable
+
+import torch
+from torch import nn
+
+from ..models.lamb import Lamb
+from ..models.nets import SemAbs3DConfig, semabs3d_forward
+from .losses import ovssc_ignore_mask, ovssc_loss
+from .schedule import Schedule, make_schedule
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """clip(grad_max_norm) -> LAMB(lr * schedule(count)): the optax chain
+    of the JAX package, as a recipe for a model's ``Lamb``."""
+
+    lr: float
+    weight_decay: float
+    grad_max_norm: float
+    schedule: Schedule
+
+    def init(self, model: nn.Module) -> Lamb:
+        return Lamb(model.parameters(), lr=self.lr, schedule=self.schedule,
+                    weight_decay=self.weight_decay)
+
+
+def make_optimizer(lr: float = 1e-3, weight_decay: float = 1e-5,
+                   grad_max_norm: float = 2.0,
+                   lr_scheduler_type: str = "cosine_with_restarts",
+                   num_warmup_steps: int = 1024,
+                   num_training_steps: int = 1) -> Optimizer:
+    return Optimizer(lr, weight_decay, grad_max_norm,
+                     make_schedule(lr_scheduler_type, num_warmup_steps,
+                                   num_training_steps))
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: Lamb
+    step: int = 0
+
+
+def init_train_state(model: nn.Module, tx: Optimizer) -> TrainState:
+    return TrainState(model=model, optimizer=tx.init(model))
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax ``global_norm``)."""
+    return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
+
+
+def clip_by_global_norm_(grads, norm: torch.Tensor, max_norm: float) -> None:
+    """optax ``clip_by_global_norm``: g * max_norm / norm where norm >=
+    max_norm, in place, with no read-back of the norm."""
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    for g in grads:
+        g.mul_(scale)
+
+
+def ovssc_forward_loss(model, cfg: SemAbs3DConfig, batch: dict,
+                       balance_positive_negative: bool = False,
+                       compute_dtype: torch.dtype = torch.bfloat16,
+                       per_sample: bool = False):
+    """SemAbs3D OVSSC loss (reference train_ovssc.py:81-169) ->
+    (loss, {loss, accuracy, logits, ignore[, *_per_sample]})."""
+    logits = semabs3d_forward(
+        model, cfg,
+        input_xyz_pts=batch["input_xyz_pts"],
+        input_feature_pts=batch["input_feature_pts"],
+        output_xyz_pts=batch["output_xyz_pts"],
+        tsdf_vol=batch.get("tsdf_vol"),
+        valid_mask=batch.get("input_valid_mask"),
+        compute_dtype=compute_dtype,
+    )
+    ignore = ovssc_ignore_mask(batch["padding_mask"], batch["out_of_bounds_pts"],
+                               batch.get("out_of_frustum_pts_mask"))
+    stats = ovssc_loss(logits, batch["output_label_pts"], ignore,
+                       balance_positive_negative, per_sample=per_sample)
+    return stats["loss"], {**stats, "logits": logits, "ignore": ignore}
+
+
+def make_train_step(forward_loss: Callable, cfg, tx: Optimizer,
+                    balance_positive_negative: bool = False,
+                    compute_dtype: torch.dtype = torch.bfloat16):
+    """(state, batch) -> (state, {"loss", "accuracy", "grad_norm"}); the
+    grad norm is the one before clipping (reference utils.py:320-326)."""
+
+    def step_fn(state: TrainState, batch: dict):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, aux = forward_loss(state.model, cfg, batch,
+                                 balance_positive_negative, compute_dtype)
+        loss.backward()
+        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+        grad_norm = global_norm(grads)
+        clip_by_global_norm_(grads, grad_norm, tx.grad_max_norm)
+        state.optimizer.step()
+        state.step += 1
+        return state, {"loss": loss.detach(), "accuracy": aux["accuracy"],
+                       "grad_norm": grad_norm}
+
+    return step_fn
+
+
+def make_eval_step(forward_loss: Callable, cfg,
+                   compute_dtype: torch.dtype = torch.bfloat16):
+    """(model, batch) -> {loss, accuracy, loss_per_sample,
+    accuracy_per_sample, logits, ignore}, without gradients."""
+
+    @torch.no_grad()
+    def step_fn(model, batch: dict):
+        _, aux = forward_loss(model, cfg, batch, False, compute_dtype,
+                              per_sample=True)
+        return aux
+
+    return step_fn

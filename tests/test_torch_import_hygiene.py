@@ -1,10 +1,14 @@
 """The port imports neither JAX nor anything of the JAX package, and no
 module builds a kernel at import. Checked in a fresh interpreter, since
-this test process has JAX loaded (tests/conftest.py)."""
+this test process has JAX loaded (tests/conftest.py), and by reading every
+import statement of the port's sources and of chip_smoke.py."""
+import ast
 import os
 import pkgutil
 import subprocess
 import sys
+
+import pytest
 
 import semantic_abstraction_tpu_torch
 
@@ -20,8 +24,31 @@ def test_port_modules_are_found():
     mods = _port_modules()
     for name in ("clip.model", "clip.saliency", "clip.relevancy", "clip.convert",
                  "clip.tokenizer", "ops.fused_mha", "ops._build", "ops.sampling",
-                 "cli.generate_relevancy"):
+                 "cli.generate_relevancy", "ops.voxel", "ops.channel_moments",
+                 "models.params", "models.unet3d", "models.decoder", "models.nets",
+                 "models.convert", "models.lamb", "runtime.losses",
+                 "runtime.schedule", "runtime.train"):
         assert f"semantic_abstraction_tpu_torch.{name}" in mods
+
+
+def _sources():
+    pkg = os.path.join(REPO, "semantic_abstraction_tpu_torch")
+    files = [os.path.join(root, f) for root, _, names in os.walk(pkg)
+             for f in names if f.endswith(".py")]
+    return sorted(os.path.relpath(f, REPO) for f in files) + ["chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _sources())
+def test_no_source_imports_jax(path):
+    """Also the imports inside functions, which the import check below
+    does not run (chip_smoke.py imports the port only inside ``main``)."""
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module and n.level == 0]
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "semantic_abstraction_tpu")]
+    assert not bad, bad
 
 
 def test_importing_the_port_loads_no_jax():
