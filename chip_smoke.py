@@ -9,25 +9,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 2. hold each kernel against its plain PyTorch version on the card at its
    path's shapes, in f32 and bf16, and time kernel, plain version, the
    PyTorch library call (a yardstick only) and the bound: ``fused_mha`` at
-   the relevancy path's tile chunks, ``channel_moments`` at the 11 (C, S)
-   shapes of the full-size UNet's GroupNorms;
-3. run a small ``ClipSaliency`` on the card and on the CPU with the same
-   weights and jitter draws; the maps must agree; then two train steps of
-   a small SemAbs3D on the card and on the CPU from the same weights and
-   batch (f32, TF32 off); loss, grad norm, logits and the updated
-   parameters must agree;
+   the ViT-B/32 path's tile chunks (T = 50) and at ViT-L/14's T = 257 and
+   577, ``cam_accumulate`` at the ViT-B/32 and ViT-L/14 shapes of the
+   multi-tail gradcam, ``channel_moments`` at the 11 (C, S) shapes of the
+   full-size UNet's GroupNorms;
+3. run small ``ClipSaliency`` pipelines on the card and on the CPU with the
+   same weights and jitter draws, and the maps must agree: a single-tail
+   one at T = 50 and a multi-tail one (4 blocks, num_layers=0, patch 14)
+   whose head and tail run both relevancy kernels at T = 257; then two
+   train steps of a small SemAbs3D on the card and on the CPU from the
+   same weights and batch (f32, TF32 off); loss, grad norm, logits and the
+   updated parameters must agree;
 4. run the relevancy path at full width: the ``image`` command's
    ``build_saliency`` + ``relevancy`` (ViT-B/32, random weights, bf16,
    "ours" crops on a seeded 480x640 image, the 9 headline labels), one
    warm-up image, then timed images;
 5. profile one more image with ``torch.profiler`` (device time by kernel);
-6. run the OVSSC train step at full width: ``SemAbs3DConfig()`` (128^3
+6. the multi-tail path at full width: OpenAI ViT-L/14's shape (24 blocks
+   of width 1024, patch 14, T = 257) with random weights, bf16, the CLI's
+   num_layers=10 (13 tail blocks, each accumulated by ``cam_accumulate``)
+   on the same image and labels: one warm-up image, timed images, and one
+   profiled image;
+7. run the OVSSC train step at full width: ``SemAbs3DConfig()`` (128^3
    voxels, 16 channels, f_maps 16, 6 levels, 4 patches), bf16, random
    weights from seed 0, the ``bench_train.py`` batch from numpy seed 0
    (80,000 input points, 4 x 400,000 query points); first the bf16 eval
    and train step against the same in f32 from the same weights, then one
    warm-up step, timed steps and one eval step;
-7. profile one more train step.
+8. profile one more train step.
 
 Each path's kernel launch counts are set to 0 just before its timed run
 and read just after. Prints a ``{"kernels": [...]}`` line, the card's name
@@ -51,7 +60,13 @@ HEADLINE_LABELS = [
     "vase", "fireplace", "abstract painting of a vespa", "carpet", "wall",
 ]
 TIMED_IMAGES = 3
+TIMED_VITL_IMAGES = 2
 TIMED_STEPS = 5
+# OpenAI ViT-L/14, the published shape (the JAX package reads it from a
+# state dict with config_from_state_dict; no preset in either package)
+VIT_L_14 = dict(embed_dim=768, image_resolution=224, vision_layers=24,
+                vision_width=1024, vision_patch_size=14, context_length=77,
+                vocab_size=49408, text_width=768, text_heads=12, text_layers=12)
 # (C, S) of every GroupNorm of the full-size UNet, at B = 4 volumes
 UNET_GN_SHAPES = [(16, 128**3), (16, 64**3), (32, 64**3), (32, 32**3),
                   (64, 32**3), (64, 16**3), (128, 16**3), (128, 8**3),
@@ -91,16 +106,17 @@ def mha_bound(b: int, t: int, w: int, heads: int, dtype: str):
 
 
 def phase_kernel(card: str):
-    """fused_mha vs mha_reference at the main path's shapes."""
+    """fused_mha vs mha_reference at the relevancy paths' shapes."""
     import torch
     import torch.nn.functional as F
 
     from semantic_abstraction_tpu_torch.ops.fused_mha import fused_mha, mha_reference
 
-    t, w, heads = 50, 768, 12
-    # tile chunks of the main path at tile_batch_size 32 ("ours" at
-    # 480x640: 12, 45, 42, 48 rows) and the batches 32, 64, 90
-    batches = (12, 32, 42, 45, 48, 64, 90)
+    # (B, T, W): ViT-B/32 tile chunks of the main path at tile_batch_size 32
+    # ("ours" at 480x640: 12, 45, 42, 48 rows) and the batches 32, 64, 90;
+    # a ViT-L/14 chunk at 224 px (T = 257) and at 336 px (T = 577)
+    shapes = [(b, 50, 768) for b in (12, 32, 42, 45, 48, 64, 90)]
+    shapes += [(48, 257, 1024), (48, 577, 1024)]
     # f32: sums in another order than cuBLAS; bf16: the output and the probs
     # round to bf16 (1 ulp = 2^-8 relative), so 2 ulp of |out| <= 2
     tols = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-2)}
@@ -108,7 +124,8 @@ def phase_kernel(card: str):
     g = torch.Generator(device="cuda").manual_seed(0)
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         atol, rtol = tols[dname]
-        for b in batches:
+        for b, t, w in shapes:
+            heads = w // 64
             qkv = torch.randn(b, t, 3 * w, device="cuda", generator=g).to(dtype)
             q, k, v = qkv.split(w, dim=-1)  # strided views, as on the path
             out = fused_mha(q, k, v, heads)
@@ -118,18 +135,102 @@ def phase_kernel(card: str):
             rel = err / ref.float().abs().max().item()
             ok = torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
             if not ok:
-                raise AssertionError(f"fused_mha {dname} B={b}: max err {err}")
+                raise AssertionError(f"fused_mha {dname} B={b} T={t}: max err {err}")
             qh, kh, vh = (a.reshape(b, t, heads, w // heads).transpose(1, 2)
                           for a in (q, k, v))
-            row = dict(dtype=dname, B=b, max_abs_err=err, max_rel_err=rel,
-                       ms=time_ms(lambda: fused_mha(q, k, v, heads)),
-                       plain_ms=time_ms(lambda: mha_reference(q, k, v, heads)),
+            iters = 100 if t <= 64 else 20
+            row = dict(dtype=dname, B=b, T=t, W=w, max_abs_err=err, max_rel_err=rel,
+                       ms=time_ms(lambda: fused_mha(q, k, v, heads), iters),
+                       plain_ms=time_ms(lambda: mha_reference(q, k, v, heads), iters),
                        library_ms=time_ms(
-                           lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+                           lambda: F.scaled_dot_product_attention(qh, kh, vh), iters),
                        )
             row["bound_ms"], row["bound_by"] = mha_bound(b, t, w, heads, dname)
             rows.append(row)
             print(f"[kernel] fused_mha {json.dumps(row)} card={card}", flush=True)
+            del qkv, q, k, v, qh, kh, vh, out, ref
+    return rows
+
+
+def cam_bound(l: int, b: int, h: int, t: int, dtype: str):
+    """(least ms, "bytes" or "operations") for one cam_accumulate step:
+    grad and attn read once, R read once and out written once (f32) at the
+    HBM rate, or the flops at the f32 peak: 2*L*B*T^3 for the product and
+    3 an element of grad (product, ReLU, head sum)."""
+    elt = 2 if dtype == "bfloat16" else 4
+    bytes_s = ((l * b * h + b * h) * t * t * elt + 2 * l * b * t * t * 4) / HBM_BYTES_PER_S
+    flops_s = (2 * l * b * t**3 + 3 * l * b * h * t * t) / PEAK_FLOPS["float32"]
+    return 1e3 * max(bytes_s, flops_s), ("bytes" if bytes_s >= flops_s else "operations")
+
+
+def cam_inputs(g, l, b, h, t, dtype, identity=False):
+    """Attention probabilities, signed gradients and R (the identity
+    expanded with stride 0, as the gradcam's first step, or dense)."""
+    import torch
+
+    attn = torch.softmax(4 * torch.randn(b, h, t, t, device="cuda", generator=g), -1)
+    grad = 0.05 * torch.randn(l, b, h, t, t, device="cuda", generator=g)
+    eye = torch.eye(t, device="cuda")
+    r = (eye.expand(l, b, t, t) if identity else
+         eye + 0.1 * torch.rand(l, b, t, t, device="cuda", generator=g))
+    return grad.to(dtype), attn.to(dtype), r
+
+
+def cam_rel_err(out, grad, attn, r, positive):
+    """(largest |kernel - plain| over the sum of its terms' magnitudes,
+    |R| + |cam| @ |R|, largest |kernel - plain|): both versions sum the same
+    f32 values in other orders."""
+    import torch
+
+    from semantic_abstraction_tpu_torch.ops.cam_accumulate import cam_accumulate_reference
+
+    ref = cam_accumulate_reference(grad, attn, r, positive)
+    scale = r.abs() + torch.matmul(
+        (grad.float() * attn[None].float()).abs().mean(dim=2), r.abs())
+    return ((out - ref).abs() / scale).max().item(), (out - ref).abs().max().item()
+
+
+def phase_cam(card: str):
+    """cam_accumulate vs cam_accumulate_reference at the multi-tail
+    gradcam's shapes: L = 9 labels, B = 48 tiles, ViT-B/32 (H = 12, T = 50)
+    and ViT-L/14 (H = 16, T = 257), a dense R, ReLU on (timed) and off, and
+    the stride-0 identity R. Tolerance: 1e-5 of |R| + |cam| @ |R|."""
+    import torch
+
+    from semantic_abstraction_tpu_torch.ops.cam_accumulate import (
+        cam_accumulate, cam_accumulate_reference)
+
+    l, b = 9, 48
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for h, t in ((12, 50), (16, 257)):
+            errs = []
+            for positive, identity in ((True, False), (False, False), (True, True)):
+                grad, attn, r = cam_inputs(g, l, b, h, t, dtype, identity)
+                out = cam_accumulate(grad, attn, r, positive)
+                torch.cuda.synchronize()
+                errs.append(cam_rel_err(out, grad, attn, r, positive))
+                if not errs[-1][0] <= 1e-5:
+                    raise AssertionError(f"cam_accumulate {dname} T={t} relu={positive} "
+                                         f"identity={identity}: rel err {errs[-1][0]}")
+                del out
+            # timed: the general step (dense R), ReLU on, as on the path
+            grad, attn, r = cam_inputs(g, l, b, h, t, dtype)
+            iters = 100 if t <= 64 else 20
+            row = dict(dtype=dname, L=l, B=b, H=h, T=t,
+                       max_rel_err=max(e[0] for e in errs),
+                       max_abs_err=max(e[1] for e in errs),
+                       ms=time_ms(lambda: cam_accumulate(grad, attn, r), iters),
+                       plain_ms=time_ms(lambda: cam_accumulate_reference(grad, attn, r),
+                                        iters),
+                       library_ms=None)
+            row["bound_ms"], row["bound_by"] = cam_bound(l, b, h, t, dname)
+            rows.append(row)
+            print(f"[kernel] cam_accumulate {json.dumps(row)} tol rel 1e-5 card={card}",
+                  flush=True)
+            del grad, attn, r
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -183,44 +284,49 @@ def phase_moments(card: str):
     return rows
 
 
-def small_config():
+def small_config(**kw):
     from semantic_abstraction_tpu_torch.clip import ClipConfig
 
-    return ClipConfig(embed_dim=32, image_resolution=224, vision_layers=3,
-                      vision_width=128, vision_patch_size=32, context_length=77,
-                      vocab_size=49408, text_width=64, text_heads=2, text_layers=1)
+    spec = dict(embed_dim=32, image_resolution=224, vision_layers=3,
+                vision_width=128, vision_patch_size=32, context_length=77,
+                vocab_size=49408, text_width=64, text_heads=2, text_layers=1)
+    return ClipConfig(**{**spec, **kw})
 
 
-def phase_small(card: str):
+def phase_small(card: str, label: str, cfg, num_layers: int, kernels):
     """Small ClipSaliency, card vs CPU: same weights, same jitter draws, f32
-    at full precision (TF32 off). Single-tail gradcam (num_layers=1 of 3
-    blocks), so the head blocks run the fused kernel on the card."""
+    at full precision (TF32 off). The card run must launch every kernel in
+    ``kernels`` (wrapper functions with a ``launches`` count)."""
     import torch
 
     from semantic_abstraction_tpu_torch.clip import (
         ClipSaliency, CropSpec, SaliencyConfig, init_clip_params)
 
-    cfg = small_config()
     config = SaliencyConfig(crops=(CropSpec(64, 16), CropSpec(32, 8)),
                             horizontal_flipping=True, augmentations=1)
     img = np.random.RandomState(3).randint(0, 255, (64, 96, 3), dtype=np.uint8)
     maps = {}
     for dev in ("cpu", "cuda"):
         sal = ClipSaliency(init_clip_params(0, cfg, device=dev), cfg,
-                           tile_batch_size=8, num_layers=1)
+                           tile_batch_size=8, num_layers=num_layers)
+        for k in kernels:
+            k.launches = 0
         m, _ = sal.get_clip_saliency(img, ["chair", "table", "sofa"],
                                      ["a photo of a {}"], config,
                                      generator=torch.Generator().manual_seed(1))
         maps[dev] = m.float().cpu()
+    launches = {k.__name__: k.launches for k in kernels}
     diff = (maps["cuda"] - maps["cpu"]).abs().max().item()
     scale = maps["cpu"].abs().max().item()
     # f16 maps of f32 pipelines that differ in summation order: allow 4 f16
     # ulp of the largest value
     tol = 2.0**-8 * scale
-    print(f"[small] card vs cpu max|diff| {diff} (tol {tol}, max|map| {scale}) "
-          f"card={card}", flush=True)
+    print(f"[{label}] card vs cpu max|diff| {diff} (tol {tol}, max|map| {scale}) "
+          f"card launches {launches} card={card}", flush=True)
     if not (scale > 0 and diff <= tol and torch.isfinite(maps["cuda"]).all()):
-        raise AssertionError(f"small port: card and CPU disagree ({diff} > {tol})")
+        raise AssertionError(f"{label}: card and CPU disagree ({diff} > {tol})")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"{label}: a kernel was not launched: {launches}")
     return diff
 
 
@@ -447,7 +553,71 @@ def phase_main(card: str):
     return sal, img, args, launches, sum(times) / len(times)
 
 
-def phase_profile(card: str, label: str, run, unprofiled_s: float, port_kernels):
+def phase_vitl(card: str):
+    """The multi-tail path at full width: ViT-L/14 (random weights from
+    seed 0) behind the extractor the CLI builds, through ``relevancy``."""
+    import warnings
+
+    import torch
+
+    from semantic_abstraction_tpu_torch.cli import generate_relevancy as cli
+    from semantic_abstraction_tpu_torch.clip import (
+        ClipConfig, ClipSaliency, init_clip_params)
+    from semantic_abstraction_tpu_torch.ops.cam_accumulate import cam_accumulate
+    from semantic_abstraction_tpu_torch.ops.fused_mha import fused_mha
+
+    args = cli.parser().parse_args(
+        ["image", "--random-weights", "--labels", *HEADLINE_LABELS])
+    cfg = ClipConfig(**VIT_L_14)
+    t0 = time.perf_counter()
+    # what build_saliency does with a --clip-ckpt of this shape
+    sal = ClipSaliency(init_clip_params(0, cfg, device="cuda"), cfg,
+                       compute_dtype=torch.bfloat16,
+                       tile_batch_size=args.tile_batch_size)
+    torch.cuda.synchronize()
+    print(f"[vitl14] weights built in {time.perf_counter() - t0:.1f} s "
+          f"({sum(p.numel() for p in sal.model.parameters())} parameters, "
+          f"{cfg.vision_layers - sal.num_layers - 1} tail blocks, T "
+          f"{cfg.vision_tokens})", flush=True)
+    img = np.random.RandomState(args.seed).randint(0, 255, (480, 640, 3), dtype=np.uint8)
+
+    # a vmap fallback (a per-label loop inside the batched backward) warns
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        maps = cli.relevancy(sal, img, args)
+        torch.cuda.synchronize()
+    msgs = sorted({str(w.message)[:160] for w in caught})
+    print(f"[vitl14] warm-up image {time.perf_counter() - t0:.3f} s; "
+          f"{len(caught)} warnings {msgs}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    fused_mha.launches = cam_accumulate.launches = 0
+    times = []
+    for i in range(TIMED_VITL_IMAGES):
+        args.seed = i + 1
+        t0 = time.perf_counter()
+        maps = cli.relevancy(sal, img, args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {"fused_mha": fused_mha.launches, "cam_accumulate": cam_accumulate.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    if maps.shape != (9, 480, 640) or maps.dtype != torch.float16:
+        raise AssertionError(f"vitl14 maps {tuple(maps.shape)} {maps.dtype}")
+    if not torch.isfinite(maps).all() or not (maps != 0).any():
+        raise AssertionError("vitl14 maps are not finite or all zero")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"the ViT-L/14 path left a kernel unlaunched: {launches}")
+    per_image = {k: n / TIMED_VITL_IMAGES for k, n in launches.items()}
+    print(f"[vitl14] image seconds {times} seconds/image {sum(times) / len(times)} "
+          f"maps/s {9 * TIMED_VITL_IMAGES / sum(times)} peak mem GB {peak:.2f} "
+          f"launches {launches} per image {per_image} card={card}", flush=True)
+    return sal, img, args, launches, sum(times) / len(times)
+
+
+def phase_profile(card: str, label: str, run, unprofiled_s: float, port_kernels,
+                  top: int = 12):
     """Device time by kernel over one ``run()`` (torch.profiler), and the
     share of the path's own kernels (device function names in
     ``port_kernels``). The busy share is given against the profiled wall and
@@ -479,7 +649,7 @@ def phase_profile(card: str, label: str, run, unprofiled_s: float, port_kernels)
           f"{100 * busy / unprofiled_s:.1f}% of the unprofiled time "
           f"{unprofiled_s:.3f} s; {sum(e.count for e in events)} device kernels "
           f"of {len(events)} names card={card}")
-    for e in sorted(events, key=lambda e: -getattr(e, attr))[:12]:
+    for e in sorted(events, key=lambda e: -getattr(e, attr))[:top]:
         us = getattr(e, attr)
         print(f"[profile]   {100 * us / total_us:5.1f}%  {us / 1e3:9.2f} ms  "
               f"x{e.count:<6d} {e.key[:90]}")
@@ -513,29 +683,54 @@ def main() -> int:
     print(f"[build] {list(_build.KERNELS)} built in "
           f"{time.perf_counter() - t0:.1f} s card={card}", flush=True)
 
+    from semantic_abstraction_tpu_torch.ops.cam_accumulate import cam_accumulate
+    from semantic_abstraction_tpu_torch.ops.fused_mha import fused_mha
+
     rows = phase_kernel(card)
+    crows = phase_cam(card)
     mrows = phase_moments(card)
-    phase_small(card)
+    phase_small(card, "small", small_config(), 1, (fused_mha,))
+    phase_small(card, "small-multitail", small_config(vision_layers=4, vision_patch_size=14),
+                0, (fused_mha, cam_accumulate))
     phase_small_ovssc(card)
     sal, img, args, launches, image_s = phase_main(card)
     phase_profile(card, "relevancy image", lambda: cli.relevancy(sal, img, args),
-                  image_s, ("fused_mha_kernel",))
+                  image_s, ("fused_mha_",))
+    del sal
+    torch.cuda.empty_cache()
+    sal, img, args, vitl_launches, vitl_s = phase_vitl(card)
+    phase_profile(card, "vit-l/14 image", lambda: cli.relevancy(sal, img, args),
+                  vitl_s, ("fused_mha_", "cam_accumulate_"), top=20)
     del sal
     torch.cuda.empty_cache()
     state, step, batch, ovssc_launches, step_s = phase_ovssc(card)
     phase_profile(card, "ovssc train step", lambda: step(state, batch), step_s,
                   ("moments_partial", "moments_finish"))
 
-    # the kernels line. fused_mha: bf16 at the relevancy path's dominant
-    # chunk (48 rows), errors over every bf16 shape of that path (relative
-    # to max |out|); launches on the relevancy path. channel_moments: bf16
-    # at level 0 (4, 16, 128^3), errors over the 11 bf16 UNet shapes
-    # (relative to the sum of |x| for s1 and to s2, tolerance 1e-5; the
-    # absolute error is one of sums near 1e7); launches on the OVSSC path's
-    # timed steps.
-    main = next(r for r in rows if r["dtype"] == "bfloat16" and r["B"] == 48)
-    path_rows = [r for r in rows if r["dtype"] == "bfloat16" and r["B"] in (12, 42, 45, 48)]
-    mmain = next(r for r in mrows if r["dtype"] == "bfloat16" and r["S"] == 128**3)
+    # the kernels line. fused_mha: bf16 at the ViT-B/32 path's dominant
+    # chunk (48 rows, T = 50), errors over every bf16 shape of the two
+    # relevancy paths (relative to max |out|), launches on the ViT-B/32
+    # path; the same at the ViT-L/14 chunk (T = 257) under "vit_l14".
+    # cam_accumulate: bf16 at the ViT-L/14 chunk (L = 9, B = 48, H = 16,
+    # T = 257), errors over its bf16 shapes (relative to |R| + |cam| @ |R|,
+    # tolerance 1e-5), launches on the ViT-L/14 path; no single PyTorch
+    # call computes it. channel_moments: bf16 at level 0 (4, 16, 128^3),
+    # errors over the 11 bf16 UNet shapes (relative to the sum of |x| for
+    # s1 and to s2, tolerance 1e-5; the absolute error is one of sums near
+    # 1e7); launches on the OVSSC path's timed steps.
+    def pick(rs, **kw):
+        return next(r for r in rs if all(r[k] == v for k, v in kw.items()))
+
+    def timing(r):
+        return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
+    main = pick(rows, dtype="bfloat16", B=48, T=50)
+    vitl = pick(rows, dtype="bfloat16", B=48, T=257)
+    path_rows = [r for r in rows if r["dtype"] == "bfloat16"
+                 and (r["B"], r["T"]) in ((12, 50), (42, 50), (45, 50), (48, 50), (48, 257))]
+    cmain = pick(crows, dtype="bfloat16", T=257)
+    cbf16 = [r for r in crows if r["dtype"] == "bfloat16"]
+    mmain = pick(mrows, dtype="bfloat16", S=128**3)
     mbf16 = [r for r in mrows if r["dtype"] == "bfloat16"]
     kernels = [{
         "name": "fused_mha", "route": "cuda",
@@ -544,9 +739,16 @@ def main() -> int:
         "launches": launches["fused_mha"],
         "max_abs_err": max(r["max_abs_err"] for r in path_rows),
         "max_rel_err": max(r["max_rel_err"] for r in path_rows),
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"],
+        **timing(main),
+        "vit_l14": {"launches": vitl_launches["fused_mha"], **timing(vitl)},
+    }, {
+        "name": "cam_accumulate", "route": "cuda",
+        "source": "semantic_abstraction_tpu_torch/ops/csrc/cam_accumulate.cu",
+        "replaces": "semantic_abstraction_tpu/ops/pallas_kernels.py:34",
+        "launches": vitl_launches["cam_accumulate"],
+        "max_abs_err": max(r["max_abs_err"] for r in cbf16),
+        "max_rel_err": max(r["max_rel_err"] for r in cbf16),
+        **timing(cmain),
     }, {
         "name": "channel_moments", "route": "cuda",
         "source": "semantic_abstraction_tpu_torch/ops/csrc/channel_moments.cu",
@@ -554,9 +756,7 @@ def main() -> int:
         "launches": ovssc_launches["channel_moments"],
         "max_abs_err": max(r["max_abs_err"] for r in mbf16),
         "max_rel_err": max(r["max_rel_err"] for r in mbf16),
-        "ms": mmain["ms"], "plain_ms": mmain["plain_ms"],
-        "bound_ms": mmain["bound_ms"], "bound_by": mmain["bound_by"],
-        "library_ms": mmain["library_ms"],
+        **timing(mmain),
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

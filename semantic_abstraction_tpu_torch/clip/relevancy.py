@@ -11,9 +11,11 @@ zero ``eps``, so that d(logit)/d(eps) == d(logit)/d(probs).
   attention matters; its per-label gradient comes from ONE batched autograd
   call over the label axis.
 - ``gradcam`` with more than one tail block (or ``force_general``): the
-  general path, a batched backward through the tail per label and the
-  accumulation R <- R + mean_heads(relu(grad * attn)) @ R in plain torch.
-  It is also the oracle that pins the closed form in the tests.
+  general path (ViT-L/14 at num_layers=10 has 13 tail blocks), one batched
+  backward through the tail over the labels, then for each tail block the
+  accumulation R <- R + mean_heads(relu(grad * attn)) @ R through
+  ``ops.cam_accumulate`` (the CUDA kernel on the card, its plain version on
+  the CPU). It is also the oracle that pins the closed form in the tests.
 
 Output: (num_labels, num_tiles, g, g) f32, g = sqrt(tokens - 1), the
 CLS-row relevancy over image patches.
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.cam_accumulate import cam_accumulate
 from .model import (
     ClipConfig,
     _block_forward,
@@ -154,14 +157,12 @@ def gradcam(visual, tiles: torch.Tensor, zeroshot_weights: torch.Tensor,
         )  # per tail block: (L, B, H, T, T)
     with torch.no_grad():
         num_labels = zeroshot_weights.shape[1]
+        # the first R is the identity expanded with stride 0 over (L, B): the
+        # kernel reads R through its strides, so it is never materialized
         eye = torch.eye(t, dtype=torch.float32, device=tiles.device)
         r_mat = eye.expand(num_labels, b, t, t)
         for j in range(n_tail):
-            cam = grads[j].float() * probs[j][None].float()
-            if positive_attn_only:
-                cam = cam.clamp_min(0.0)
-            cam = cam.mean(dim=2)  # mean over heads -> (L, B, T, T)
-            r_mat = r_mat + torch.matmul(cam, r_mat)
+            r_mat = cam_accumulate(grads[j], probs[j], r_mat, positive_attn_only)
         g = int(round((t - 1) ** 0.5))
         return r_mat[:, :, 0, 1:].reshape(num_labels, b, g, g)
 

@@ -7,7 +7,7 @@ Counterpart of ``semantic_abstraction_tpu/ops/pallas_kernels.py``'s
 (B, T, W) q, k, v, q unscaled, and returns (B, T, W):
 
 - a CUDA tensor launches the kernel, or raises on what the kernel does not
-  take (head dim, token count, dtype, layout);
+  take (head dim, more than ``MAX_TOKENS`` tokens, dtype, layout);
 - a CPU tensor takes the plain version ``mha_reference``.
 
 The backward pass differentiates the plain version, as the JAX
@@ -25,6 +25,7 @@ from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 64  # the kernel's compiled head dim (fused_mha_head_dim())
+MAX_TOKENS = 2048  # the kernel's shared-memory bound (fused_mha_max_tokens())
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,6 +60,8 @@ def _check(q, k, v, num_heads):
     if w % num_heads or w // num_heads != HEAD_DIM:
         raise ValueError(f"fused_mha takes head_dim {HEAD_DIM}, got "
                          f"width {w} / {num_heads} heads")
+    if t > MAX_TOKENS:
+        raise ValueError(f"fused_mha takes at most {MAX_TOKENS} tokens, got {t}")
     for a in (q, k, v):
         if a.stride(-1) != 1:
             raise ValueError("fused_mha needs unit stride on the last axis")
@@ -66,18 +69,19 @@ def _check(q, k, v, num_heads):
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    """(the built library's launch function with its C signature, the
-    kernel's token bound), built at first use."""
+    """The built library's launch function with its C signature, built at
+    first use."""
     lib = _build.load("fused_mha")
-    for query in (lib.fused_mha_head_dim, lib.fused_mha_max_tokens):
+    for query, want in ((lib.fused_mha_head_dim, HEAD_DIM),
+                        (lib.fused_mha_max_tokens, MAX_TOKENS)):
         query.argtypes, query.restype = [], ctypes.c_int
-    if lib.fused_mha_head_dim() != HEAD_DIM:
-        raise RuntimeError("built fused_mha kernel disagrees on head_dim")
+        if query() != want:
+            raise RuntimeError(f"built fused_mha kernel disagrees: {query.__name__}")
     fn = lib.fused_mha_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p])
-    return fn, lib.fused_mha_max_tokens()
+    return fn
 
 
 def _launch(q, k, v, num_heads):
@@ -86,9 +90,7 @@ def _launch(q, k, v, num_heads):
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
     b, t, w = q.shape
-    fn, max_tokens = _kernel()
-    if t > max_tokens:
-        raise ValueError(f"fused_mha takes at most {max_tokens} tokens, got {t}")
+    fn = _kernel()
     out = torch.empty((b, t, w), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -71,6 +71,7 @@ def test_autograd_function_backward_matches_jax_vjp(monkeypatch):
     ((2, 50, 768), 4, torch.float32, ValueError),    # head_dim 192
     ((2, 50, 768), 7, torch.float32, ValueError),    # W % heads != 0
     ((2, 50, 768), 12, torch.float16, TypeError),    # dtype
+    ((1, 2049, 128), 2, torch.float32, ValueError),  # above the smem bound
 ])
 def test_kernel_checks_reject_unsupported(shape, heads, dtype, err):
     a = torch.zeros(shape, dtype=dtype)

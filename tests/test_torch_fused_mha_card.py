@@ -40,16 +40,22 @@ def _qkv_views(device, b, t, w, dtype, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-# main-path tile chunks (T = 50) and the kernel's token bound (T = 256)
-@pytest.mark.parametrize("b,t", [(32, 50), (48, 50), (90, 50), (3, 256)])
-def test_kernel_matches_plain_version(cuda, dtype, b, t):
-    q, k, v = _qkv_views(cuda, b, t, 768, dtype, seed=b)
+# ViT-B/32 tile chunks (T = 50); one token; both sides of a block's 16
+# query rows (16, 17); ViT-B/16 (197); the first version's 256-token bound;
+# ViT-L/14 at 224 and 336 px (257, 577), at its width of 16 heads
+@pytest.mark.parametrize("b,t,w", [(32, 50, 768), (48, 50, 768), (90, 50, 768),
+                                   (4, 1, 768), (4, 16, 768), (4, 17, 768),
+                                   (8, 197, 768), (3, 256, 768), (48, 257, 1024),
+                                   (4, 577, 1024)])
+def test_kernel_matches_plain_version(cuda, dtype, b, t, w):
+    heads = w // 64
+    q, k, v = _qkv_views(cuda, b, t, w, dtype, seed=b + t)
     before = fm.fused_mha.launches
-    out = fm.fused_mha(q, k, v, 12)
+    out = fm.fused_mha(q, k, v, heads)
     torch.cuda.synchronize()
     assert fm.fused_mha.launches == before + 1
-    assert out.shape == (b, t, 768) and out.dtype == dtype
-    torch.testing.assert_close(out.float(), fm.mha_reference(q, k, v, 12).float(),
+    assert out.shape == (b, t, w) and out.dtype == dtype
+    torch.testing.assert_close(out.float(), fm.mha_reference(q, k, v, heads).float(),
                                **TOLS[dtype])
 
 
@@ -68,7 +74,7 @@ def test_kernel_backward_is_the_plain_versions(cuda):
 @pytest.mark.parametrize("shape,heads,dtype,err", [
     ((2, 50, 768), 4, torch.float32, ValueError),    # head_dim 192
     ((2, 50, 768), 12, torch.float16, TypeError),    # dtype
-    ((2, 257, 768), 12, torch.float32, ValueError),  # above the smem bound
+    ((2, 2049, 768), 12, torch.float32, ValueError),  # above the smem bound
 ])
 def test_kernel_raises_on_what_it_does_not_take(cuda, shape, heads, dtype, err):
     a = torch.zeros(shape, dtype=dtype, device=cuda)

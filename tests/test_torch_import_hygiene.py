@@ -23,7 +23,8 @@ def _port_modules():
 def test_port_modules_are_found():
     mods = _port_modules()
     for name in ("clip.model", "clip.saliency", "clip.relevancy", "clip.convert",
-                 "clip.tokenizer", "ops.fused_mha", "ops._build", "ops.sampling",
+                 "clip.tokenizer", "ops.fused_mha", "ops.cam_accumulate", "ops._build",
+                 "ops.sampling",
                  "cli.generate_relevancy", "ops.voxel", "ops.channel_moments",
                  "models.params", "models.unet3d", "models.decoder", "models.nets",
                  "models.convert", "models.lamb", "runtime.losses",
