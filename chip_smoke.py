@@ -10,9 +10,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    path's shapes, in f32 and bf16, and time kernel, plain version, the
    PyTorch library call (a yardstick only) and the bound: ``fused_mha`` at
    the ViT-B/32 path's tile chunks (T = 50) and at ViT-L/14's T = 257 and
-   577, ``cam_accumulate`` at the ViT-B/32 and ViT-L/14 shapes of the
-   multi-tail gradcam, ``channel_moments`` at the 11 (C, S) shapes of the
-   full-size UNet's GroupNorms;
+   577, and (checked, not timed) at B = 1 on every ragged edge of its
+   64-row and 64-key tiles up to its 2048-token bound; ``cam_accumulate``
+   at the ViT-B/32 and ViT-L/14 shapes of the multi-tail gradcam;
+   ``channel_moments`` at the 11 (C, S) shapes of the full-size UNet's
+   GroupNorms. Times are device times: the calls captured in a CUDA graph
+   and replayed, so that the host's launch rate does not set them;
 3. run small ``ClipSaliency`` pipelines on the card and on the CPU with the
    same weights and jitter draws, and the maps must agree: a single-tail
    one at T = 50 and a multi-tail one (4 blocks, num_layers=0, patch 14)
@@ -67,6 +70,8 @@ TIMED_STEPS = 5
 VIT_L_14 = dict(embed_dim=768, image_resolution=224, vision_layers=24,
                 vision_width=1024, vision_patch_size=14, context_length=77,
                 vocab_size=49408, text_width=768, text_heads=12, text_layers=12)
+# fused_mha's ragged token counts, checked at B = 1
+RAGGED_TOKENS = (1, 16, 17, 50, 63, 64, 65, 197, 256, 257, 577, 2048)
 # (C, S) of every GroupNorm of the full-size UNet, at B = 4 volumes
 UNET_GN_SHAPES = [(16, 128**3), (16, 64**3), (32, 64**3), (32, 32**3),
                   (64, 32**3), (64, 16**3), (128, 16**3), (128, 8**3),
@@ -81,18 +86,25 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 100) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of one ``fn`` call: ``iters`` calls captured in a
+    CUDA graph, the graph replayed 3 times between CUDA events."""
     import torch
 
-    for _ in range(5):
-        fn()
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(3):
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    del graph
+    return start.elapsed_time(end) / (3 * iters)
 
 
 def mha_bound(b: int, t: int, w: int, heads: int, dtype: str):
@@ -149,6 +161,18 @@ def phase_kernel(card: str):
             rows.append(row)
             print(f"[kernel] fused_mha {json.dumps(row)} card={card}", flush=True)
             del qkv, q, k, v, qh, kh, vh, out, ref
+        # every ragged edge of the 64-row query and 64-key K/V tiles, one
+        # token, the first version's 256-token bound and the 2048-token bound
+        for t in RAGGED_TOKENS:
+            q, k, v = torch.randn(1, t, 3 * 768, device="cuda", generator=g).to(dtype).split(768, -1)
+            out, ref = fused_mha(q, k, v, 12).float(), mha_reference(q, k, v, 12).float()
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            if not torch.allclose(out, ref, atol=atol, rtol=rtol):
+                raise AssertionError(f"fused_mha {dname} B=1 T={t}: max err {err}")
+            print(f"[kernel] fused_mha {dname} B=1 T={t} max_abs_err {err} card={card}",
+                  flush=True)
+            del q, k, v, out, ref
     return rows
 
 

@@ -65,6 +65,11 @@ def _check(q, k, v, num_heads):
     for a in (q, k, v):
         if a.stride(-1) != 1:
             raise ValueError("fused_mha needs unit stride on the last axis")
+        # bf16 rows go through 16-byte async copies
+        if a.dtype == torch.bfloat16 and (a.data_ptr() % 16 or a.stride(0) % 8
+                                          or a.stride(1) % 8):
+            raise ValueError(f"fused_mha in bfloat16 needs 16-byte aligned rows, got "
+                             f"strides {a.stride()} at address {a.data_ptr():#x}")
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,10 +7,10 @@ it runs on a machine with the card and no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cam_accumulate_card.py
 
-Tolerance: both versions widen the inputs to f32 exactly and sum in f32 in
-another order (the kernel's FMA chain, cuBLAS with TF32 off), so each
-output agrees to 1e-5 of the sum of the magnitudes of its terms,
-|R| + |cam| @ |R|.
+Tolerance: both versions widen the inputs to f32 exactly; the kernel's
+product runs as three TF32 products (error about 2^-21 relative) summed in
+f32 in another order than cuBLAS with TF32 off, so each output agrees to
+1e-5 of the sum of the magnitudes of its terms, |R| + |cam| @ |R|.
 """
 import pytest
 import torch
@@ -51,10 +51,15 @@ def assert_cam_close(out, grad, attn, r, positive):
     assert (err <= 1e-5 * scale).all(), (err / scale).max()
 
 
+# one token; ViT-B/32 (50); ViT-L/14 at 224 px (257, 64-row blocks) and at
+# 336 px (577, 32-row blocks); the token bound (1024)
+TOKENS = [1, 50, 257, 577, 1024]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("positive", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t", [50, 257, 577])
+@pytest.mark.parametrize("t", TOKENS)
 def test_kernel_matches_plain_version(cuda, t, dtype, positive):
     grad, attn, r = make_inputs(cuda, 3, 2, 4, t, dtype, seed=t)
     before = ca.cam_accumulate.launches
@@ -66,7 +71,7 @@ def test_kernel_matches_plain_version(cuda, t, dtype, positive):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t", [50, 257, 577])
+@pytest.mark.parametrize("t", TOKENS)
 def test_kernel_takes_the_stride_zero_identity(cuda, t, dtype):
     grad, attn, r = make_inputs(cuda, 2, 3, 2, t, dtype, seed=t + 1, identity=True)
     assert r.stride()[:2] == (0, 0)
@@ -75,20 +80,46 @@ def test_kernel_takes_the_stride_zero_identity(cuda, t, dtype):
 
 
 @pytest.mark.gpu
-def test_chained_steps_match_plain_version(cuda):
-    """Three steps of the gradcam's loop, each from the kernel's own R."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [50, 257])
+def test_kernel_takes_rows_at_any_offset(cuda, t, dtype):
+    """One head and one tile: each label's and each head's rows start at
+    another offset within 16 bytes, in grad and attn differently."""
+    grad, attn, r = make_inputs(cuda, 3, 1, 3, t, dtype, seed=t + 2)
+    assert_cam_close(ca.cam_accumulate(grad, attn, r, True), grad, attn, r, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_takes_strided_rows(cuda, dtype):
+    """Row strides other than T (views into wider rows) take the scalar
+    cam loop."""
+    t = 50
+    grad, attn, r = make_inputs(cuda, 2, 2, 3, t + 6, dtype, seed=5)
+    grad, attn = grad[..., :t, :t], attn[..., :t, :t]
+    r = r[..., :t, :t]
+    assert grad.stride(-2) != t and attn.stride(-2) != t
+    assert_cam_close(ca.cam_accumulate(grad, attn, r, False), grad, attn, r, False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chained_steps_match_plain_version(cuda, dtype):
+    """The gradcam's loop over ViT-L/14's 13 tail blocks, each step from the
+    kernel's own R."""
     t = 257
     r = r_ref = torch.eye(t, device=cuda).expand(2, 2, t, t)
-    for step in range(3):
-        grad, attn, _ = make_inputs(cuda, 2, 2, 4, t, torch.bfloat16, seed=step)
+    for step in range(13):
+        grad, attn, _ = make_inputs(cuda, 2, 2, 4, t, dtype, seed=step)
         r = ca.cam_accumulate(grad, attn, r, True)
         r_ref = ca.cam_accumulate_reference(grad, attn, r_ref, True)
     torch.testing.assert_close(r, r_ref, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu
-def test_kernel_is_deterministic(cuda):
-    grad, attn, r = make_inputs(cuda, 9, 4, 16, 257, torch.bfloat16, seed=3)
+@pytest.mark.parametrize("t", [50, 257, 577])
+def test_kernel_is_deterministic(cuda, t):
+    grad, attn, r = make_inputs(cuda, 9, 4, 16, t, torch.bfloat16, seed=3)
     assert torch.equal(ca.cam_accumulate(grad, attn, r), ca.cam_accumulate(grad, attn, r))
 
 

@@ -8,7 +8,8 @@ it runs on a machine with the card and no JAX:
 
 Tolerances: f32 atol=rtol=1e-4 (sums in another order than cuBLAS); bf16
 atol=2e-2, rtol=1e-2 (the probs and the output round to bf16, 1 ulp = 2^-8
-relative, on outputs of magnitude <= 2).
+relative, on outputs of magnitude <= 2; the tensor-core sums run in another
+order than cuBLAS's).
 """
 import pytest
 import torch
@@ -38,15 +39,20 @@ def _qkv_views(device, b, t, w, dtype, seed):
     return qkv.split(w, dim=-1)
 
 
+# ViT-B/32 tile chunks of the main path (T = 50: 12, 42, 45, 48 rows) and
+# the batches 32, 64, 90; ViT-B/16 (197); ViT-L/14 at 224 and 336 px (257,
+# 577) at its width of 16 heads; and at B = 1, every ragged edge of the
+# 64-row query tiles and 64-key K/V tiles (1, 16, 17, 63, 64, 65), the first
+# version's 256-token bound and the 2048-token bound
+PATH_SHAPES = [(b, 50, 768) for b in (12, 32, 42, 45, 48, 64, 90)] + [
+    (8, 197, 768), (48, 257, 1024), (48, 577, 1024)]
+RAGGED_SHAPES = [(1, t, 768) for t in (1, 16, 17, 50, 63, 64, 65, 197, 256, 257, 577, 2048)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-# ViT-B/32 tile chunks (T = 50); one token; both sides of a block's 16
-# query rows (16, 17); ViT-B/16 (197); the first version's 256-token bound;
-# ViT-L/14 at 224 and 336 px (257, 577), at its width of 16 heads
-@pytest.mark.parametrize("b,t,w", [(32, 50, 768), (48, 50, 768), (90, 50, 768),
-                                   (4, 1, 768), (4, 16, 768), (4, 17, 768),
-                                   (8, 197, 768), (3, 256, 768), (48, 257, 1024),
-                                   (4, 577, 1024)])
+@pytest.mark.parametrize("b,t,w", PATH_SHAPES + RAGGED_SHAPES + [
+    (4, 1, 768), (4, 16, 768), (4, 17, 768), (3, 256, 768), (4, 577, 1024)])
 def test_kernel_matches_plain_version(cuda, dtype, b, t, w):
     heads = w // 64
     q, k, v = _qkv_views(cuda, b, t, w, dtype, seed=b + t)
@@ -57,6 +63,14 @@ def test_kernel_matches_plain_version(cuda, dtype, b, t, w):
     assert out.shape == (b, t, w) and out.dtype == dtype
     torch.testing.assert_close(out.float(), fm.mha_reference(q, k, v, heads).float(),
                                **TOLS[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,w", [(48, 50, 768), (48, 257, 1024), (2, 577, 1024)])
+def test_kernel_is_deterministic(cuda, dtype, b, t, w):
+    q, k, v = _qkv_views(cuda, b, t, w, dtype, seed=7)
+    assert torch.equal(fm.fused_mha(q, k, v, w // 64), fm.fused_mha(q, k, v, w // 64))
 
 
 @pytest.mark.gpu
@@ -75,9 +89,10 @@ def test_kernel_backward_is_the_plain_versions(cuda):
     ((2, 50, 768), 4, torch.float32, ValueError),    # head_dim 192
     ((2, 50, 768), 12, torch.float16, TypeError),    # dtype
     ((2, 2049, 768), 12, torch.float32, ValueError),  # above the smem bound
+    ((2, 50, 772), 12, torch.bfloat16, ValueError),  # bf16 rows not 16-byte aligned
 ])
 def test_kernel_raises_on_what_it_does_not_take(cuda, shape, heads, dtype, err):
-    a = torch.zeros(shape, dtype=dtype, device=cuda)
+    a = torch.zeros(shape, dtype=dtype, device=cuda)[..., :768]
     before = fm.fused_mha.launches
     with pytest.raises(err):
         fm.fused_mha(a, a, a, heads)
