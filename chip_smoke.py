@@ -14,8 +14,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    64-row and 64-key tiles up to its 2048-token bound; ``cam_accumulate``
    at the ViT-B/32 and ViT-L/14 shapes of the multi-tail gradcam;
    ``channel_moments`` at the 11 (C, S) shapes of the full-size UNet's
-   GroupNorms. Times are device times: the calls captured in a CUDA graph
-   and replayed, so that the host's launch rate does not set them;
+   GroupNorms, at B = 4 (OVSSC) and B = 8 (VOOL). Times are device
+   times: the calls captured in a CUDA graph and replayed, so that the
+   host's launch rate does not set them;
 3. run small ``ClipSaliency`` pipelines on the card and on the CPU with the
    same weights and jitter draws, and the maps must agree: a single-tail
    one at T = 50 and a multi-tail one (4 blocks, num_layers=0, patch 14)
@@ -39,7 +40,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (80,000 input points, 4 x 400,000 query points); first the bf16 eval
    and train step against the same in f32 from the same weights, then one
    warm-up step, timed steps and one eval step;
-8. profile one more train step.
+8. profile one more train step;
+9. the five nets of ``FORWARD_LOSS`` at a small size (16^3 voxels, 8
+   channels, 3 levels, 2 descriptions or patches), card vs CPU from one
+   init, f32 with TF32 off: the forward-loss and one train step of each,
+   two steps and an eval step of SemAbsVOOL;
+10. the VOOL train step at full width: ``SemAbsVOOLConfig()`` (two
+   saliency streams of 4 descriptions through one UNet pass over 8
+   stacked 128^3 volumes, spatial sampler, cosine relation pointer), bf16,
+   random weights from seed 0, the ``scripts/profile_vool_step.py`` batch
+   from numpy seed 0; bf16 against f32, one warm-up step, timed steps, an
+   eval step and the 25-cutoff point and 32^3 voxel metrics over its
+   logits;
+11. profile one more VOOL train step.
 
 Each path's kernel launch counts are set to 0 just before its timed run
 and read just after. Prints a ``{"kernels": [...]}`` line, the card's name
@@ -72,10 +85,17 @@ VIT_L_14 = dict(embed_dim=768, image_resolution=224, vision_layers=24,
                 vocab_size=49408, text_width=768, text_heads=12, text_layers=12)
 # fused_mha's ragged token counts, checked at B = 1
 RAGGED_TOKENS = (1, 16, 17, 50, 63, 64, 65, 197, 256, 257, 577, 2048)
-# (C, S) of every GroupNorm of the full-size UNet, at B = 4 volumes
+# (C, S) of every GroupNorm of the full-size UNet, at B = 4 volumes (OVSSC)
+# and B = 8 (VOOL's one pass over both streams' 4 volumes; the kernel plans
+# its launch from B * C rows, so (8, 32, 64^3) and (8, 512, 4^3) give row
+# counts that no B = 4 shape gives)
 UNET_GN_SHAPES = [(16, 128**3), (16, 64**3), (32, 64**3), (32, 32**3),
                   (64, 32**3), (64, 16**3), (128, 16**3), (128, 8**3),
                   (256, 8**3), (256, 4**3), (512, 4**3)]
+MOMENTS_SHAPES = [(b, c, s) for b in (4, 8) for c, s in UNET_GN_SHAPES]
+# the small nets of the card-vs-CPU phases
+SMALL_UNET = dict(voxel_shape=(16, 16, 16), unet_num_channels=8, unet_f_maps=4,
+                  unet_num_groups=2, unet_num_levels=3, pts_feat_extractor_hidden_dim=16)
 
 
 def card_line() -> str:
@@ -277,11 +297,10 @@ def phase_moments(card: str):
     from semantic_abstraction_tpu_torch.ops.channel_moments import (
         channel_moments, channel_moments_reference)
 
-    b = 4
     rows = []
     g = torch.Generator(device="cuda").manual_seed(0)
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for c, s in UNET_GN_SHAPES:
+        for b, c, s in MOMENTS_SHAPES:
             x = (torch.randn(b, c, s, device="cuda", generator=g) * 2 + 0.5).to(dtype)
             s1, s2 = channel_moments(x)
             r1, r2 = channel_moments_reference(x)
@@ -383,7 +402,7 @@ def phase_small_ovssc(card: str):
 
     import torch
 
-    from semantic_abstraction_tpu_torch.models import SemAbs3DConfig, init_semabs3d
+    from semantic_abstraction_tpu_torch.models import SemAbs3DConfig, init_net
     from semantic_abstraction_tpu_torch.runtime import (
         init_train_state, make_eval_step, make_optimizer, make_train_step,
         ovssc_forward_loss)
@@ -391,7 +410,7 @@ def phase_small_ovssc(card: str):
     cfg = SemAbs3DConfig(voxel_shape=(16, 16, 16), unet_num_channels=8,
                          unet_f_maps=4, unet_num_groups=2, unet_num_levels=3,
                          pts_feat_extractor_hidden_dim=16)
-    model = init_semabs3d(0, cfg, device="cpu")
+    model = init_net(0, cfg, device="cpu")
     runs = {}
     for dev in ("cpu", "cuda"):
         tx = make_optimizer(lr=1e-2, num_warmup_steps=1, num_training_steps=50)
@@ -421,37 +440,42 @@ def phase_small_ovssc(card: str):
           f"{logit_err}; max|param diff| {param_err} card={card}", flush=True)
 
 
-def phase_ovssc_bf16(card: str, cfg, model, batch):
-    """The full-width path in bf16 against the same path in f32 on the
-    card, from the same weights and batch (TF32 off): the eval step's loss
-    and logits, and one train step's loss, accuracy and grad norm, each
-    dtype on its own copy of the model. Tolerances: logits mean |diff| <=
-    2^-6 mean |f32| (4 bf16 ulps) and max |diff| <= 2^-4 max |f32|; loss
-    rtol 1e-4; accuracy atol 2e-3 (points near 0 flip); grad norm rtol
-    1e-1. The grad norm's bound is loose because bf16's gradients at this
-    size differ from f32's by about a tenth of their norm as a vector
-    (printed here); that the bf16 path is the reference's is held on the
-    CPU, against the JAX package's bf16 step, in ``tests/test_torch_ovssc.py``."""
+def phase_bf16_vs_f32(card: str, label: str, forward_loss, cfg, model, batch,
+                      loss_rtol: float = 1e-4):
+    """A full-width path in bf16 against the same path in f32 on the card,
+    from the same weights and batch (TF32 off): the eval step's loss and
+    logits, and one train step's loss, accuracy and grad norm, each dtype
+    on its own copy of the model. Tolerances: logits mean |diff| <= 2^-6
+    mean |f32| (4 bf16 ulps) and max |diff| <= 2^-4 max |f32|; loss
+    ``loss_rtol`` (OVSSC 1e-4; VOOL 1e-3: its logits are cosines / 0.07,
+    14x the rounding of OVSSC-scale logits, and its bf16 loss read 4.3e-4
+    to 4.5e-4 apart from f32 on the H100); accuracy atol 2e-3 (points near 0 flip);
+    grad norm rtol 1e-1.
+    The grad norm's bound is loose because bf16's gradients at this size
+    differ from f32's by about a tenth of their norm as a vector (printed
+    here); that the bf16 path is the reference's is held on the CPU,
+    against the JAX package's bf16 step, in ``tests/test_torch_ovssc.py``
+    and ``tests/test_torch_vool.py``."""
     import copy
 
     import torch
 
     from semantic_abstraction_tpu_torch.runtime import (
-        init_train_state, make_eval_step, make_optimizer, make_train_step,
-        ovssc_forward_loss)
+        init_train_state, make_eval_step, make_optimizer, make_train_step)
     from semantic_abstraction_tpu_torch.runtime.train import global_norm
 
     res = {}
     for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         m = copy.deepcopy(model)
-        aux = make_eval_step(ovssc_forward_loss, cfg, compute_dtype=dtype)(m, batch)
+        aux = make_eval_step(forward_loss, cfg, compute_dtype=dtype)(m, batch)
         tx = make_optimizer(num_training_steps=1000)
-        _, stats = make_train_step(ovssc_forward_loss, cfg, tx, compute_dtype=dtype)(
+        _, stats = make_train_step(forward_loss, cfg, tx, compute_dtype=dtype)(
             init_train_state(m, tx), batch)
-        # the step leaves its gradients in .grad (unclipped below norm 2)
+        # the step leaves its gradients in .grad (unclipped below norm 2);
+        # a parameter the forward does not read has none
         res[name] = (aux["logits"].float(), aux["loss"].item(),
                      {k: v.item() for k, v in stats.items()},
-                     [p.grad.float() for p in m.parameters()])
+                     [p.grad.float() for p in m.parameters() if p.grad is not None])
         del m, aux, tx
         torch.cuda.empty_cache()
     (bl, bloss, bst, bg), (fl, floss, fst, fg) = res["bf16"], res["f32"]
@@ -459,17 +483,21 @@ def phase_ovssc_bf16(card: str, cfg, model, batch):
     mean_rel = (diff.mean() / ref.mean()).item()
     max_rel = (diff.max() / ref.max()).item()
     grad_rel = (global_norm([b - f for b, f in zip(bg, fg)]) / global_norm(fg)).item()
-    print(f"[ovssc-bf16] bf16 vs f32 at full width: logits mean|diff|/mean|f32| "
+    print(f"[{label}] bf16 vs f32 at full width: logits mean|diff|/mean|f32| "
           f"{mean_rel} max|diff|/max|f32| {max_rel}; eval loss {bloss} vs {floss}; "
           f"train step {bst} vs {fst}; |g_bf16 - g_f32| / |g_f32| {grad_rel} "
           f"card={card}", flush=True)
+    loss_tol = loss_rtol * abs(floss)
+    print(f"[{label}] loss rtol {loss_rtol}: |bf16 - f32| / |f32| eval "
+          f"{abs(bloss - floss) / abs(floss)} step "
+          f"{abs(bst['loss'] - fst['loss']) / abs(fst['loss'])}", flush=True)
     checks = [mean_rel <= 2.0**-6, max_rel <= 2.0**-4,
-              abs(bloss - floss) <= 1e-4 * abs(floss),
-              abs(bst["loss"] - fst["loss"]) <= 1e-4 * abs(fst["loss"]),
+              abs(bloss - floss) <= loss_tol,
+              abs(bst["loss"] - fst["loss"]) <= loss_tol,
               abs(bst["accuracy"] - fst["accuracy"]) <= 2e-3,
               abs(bst["grad_norm"] - fst["grad_norm"]) <= 1e-1 * abs(fst["grad_norm"])]
     if not all(checks):
-        raise AssertionError(f"full-width bf16 disagrees with f32: checks {checks}")
+        raise AssertionError(f"{label}: full-width bf16 disagrees with f32: checks {checks}")
 
 
 def phase_ovssc(card: str):
@@ -477,7 +505,7 @@ def phase_ovssc(card: str):
     points (bench_train.py's workload)."""
     import torch
 
-    from semantic_abstraction_tpu_torch.models import SemAbs3DConfig, init_semabs3d
+    from semantic_abstraction_tpu_torch.models import SemAbs3DConfig, init_net
     from semantic_abstraction_tpu_torch.ops.channel_moments import channel_moments
     from semantic_abstraction_tpu_torch.ops.fused_mha import fused_mha
     from semantic_abstraction_tpu_torch.runtime import (
@@ -487,13 +515,13 @@ def phase_ovssc(card: str):
     cfg = SemAbs3DConfig()
     t0 = time.perf_counter()
     tx = make_optimizer(num_training_steps=1000)
-    state = init_train_state(init_semabs3d(0, cfg), tx)
+    state = init_train_state(init_net(0, cfg), tx)
     step = make_train_step(ovssc_forward_loss, cfg, tx, compute_dtype=torch.bfloat16)
     batch = ovssc_batch(np.random.RandomState(0), 1, 4, 80000, 400000, "cuda")
     torch.cuda.synchronize()
     print(f"[ovssc] weights and batch built in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    phase_ovssc_bf16(card, cfg, state.model, batch)
+    phase_bf16_vs_f32(card, "ovssc-bf16", ovssc_forward_loss, cfg, state.model, batch)
 
     t0 = time.perf_counter()
     state, stats = step(state, batch)
@@ -530,6 +558,215 @@ def phase_ovssc(card: str):
           f"peak mem GB {peak:.2f} launches {launches} channel_moments per step "
           f"{launches['channel_moments'] / TIMED_STEPS} eval step {eval_s:.3f} s "
           f"(loss {aux['loss'].item()}) card={card}", flush=True)
+    return state, step, batch, launches, sum(times) / len(times)
+
+
+def small_net_configs():
+    """The five nets of ``FORWARD_LOSS`` at SMALL_UNET's size."""
+    from semantic_abstraction_tpu_torch.models import (
+        ClipSpatialVOOLConfig, SemAbs3DConfig, SemAbsVOOLConfig,
+        SemanticAwareOVSSCConfig, SemanticAwareVOOLConfig)
+
+    def unet(**kw):
+        return SemAbs3DConfig(**SMALL_UNET, **kw)
+
+    return {
+        "ovssc/semantic_abstraction": unet(),
+        "ovssc/semantic_aware": SemanticAwareOVSSCConfig(
+            completion=unet(network_inputs=("rgb",), output_dim=32), clip_hidden_dim=32),
+        "vool/semantic_abstraction": SemAbsVOOLConfig(
+            completion=unet(decoder_concat_xyz_pts=False), pointing_dim=16),
+        "vool/semantic_aware": SemanticAwareVOOLConfig(
+            completion=unet(network_inputs=("rgb",), output_dim=16,
+                            decoder_concat_xyz_pts=False),
+            pointing_dim=16, clip_hidden_dim=32),
+        "vool/clip_spatial": ClipSpatialVOOLConfig(
+            completion=unet(decoder_concat_xyz_pts=False)),
+    }
+
+
+def net_batch(key: str, rs, d: int, n: int, m: int, device, embed: int = 32):
+    """A batch of one scene for the forward-loss ``key``: points over and
+    past the scene bounds, 10% of the query points out of bounds, a
+    padded description, relation ids over the whole table."""
+    import torch
+
+    task, approach = key.split("/")
+    batch = {
+        "input_xyz_pts": rs.uniform(-1, 1.9, (1, n, 3)).astype(np.float32),
+        "output_xyz_pts": rs.uniform(-1.2, 2.1, (1, d, m, 3)).astype(np.float32),
+        "output_label_pts": rs.randint(0, 2, (1, d, m)).astype(np.float32),
+        "out_of_bounds_pts": rs.rand(1, d, m) < 0.1,
+        "padding_mask": np.arange(d)[None] == d - 1,
+    }
+    feats = {"semantic_abstraction": 1, "semantic_aware": 3, "clip_spatial": 1}[approach]
+    if task == "ovssc":
+        batch["input_feature_pts"] = rs.randn(1, d, n, feats).astype(np.float32)
+        batch["out_of_frustum_pts_mask"] = rs.rand(1, d, m) < 0.05
+        if approach == "semantic_aware":
+            batch["semantic_class_features"] = rs.randn(1, d, embed).astype(np.float32)
+    else:
+        batch["spatial_relation_id"] = rs.randint(0, 7, (1, d))
+        names = {"semantic_abstraction": ("input_target_saliency_pts",
+                                          "input_reference_saliency_pts"),
+                 "semantic_aware": ("input_rgb_pts",),
+                 "clip_spatial": ("input_description_saliency_pts",)}[approach]
+        for name in names:
+            batch[name] = rs.randn(1, d, n, feats).astype(np.float32)
+        if approach == "semantic_aware":
+            batch["target_obj_features"] = rs.randn(1, d, embed).astype(np.float32)
+            batch["reference_obj_features"] = rs.randn(1, d, embed).astype(np.float32)
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def phase_small_nets(card: str):
+    """The five ``FORWARD_LOSS`` entries at a small size, card vs CPU: one
+    init per net (the port's, on the CPU) copied to both devices, the same
+    batch (2 descriptions or patches, the second padded), f32 with TF32
+    off. Each: the forward-loss and one train step; SemAbsVOOL: two train
+    steps and an eval step. Tolerances as the small OVSSC phase: loss and
+    grad norm rtol 1e-4 at each step; logits and every updated parameter
+    (the VOOL nets' unread completion decoder included) rtol 1e-4, atol
+    1e-5. The card runs must launch channel_moments."""
+    import copy
+
+    import torch
+
+    from semantic_abstraction_tpu_torch.models import init_net
+    from semantic_abstraction_tpu_torch.ops.channel_moments import channel_moments
+    from semantic_abstraction_tpu_torch.runtime import (
+        FORWARD_LOSS, init_train_state, make_eval_step, make_optimizer, make_train_step)
+
+    for key, cfg in small_net_configs().items():
+        forward_loss = FORWARD_LOSS[key]
+        model = init_net(0, cfg, device="cpu")
+        steps = 2 if key == "vool/semantic_abstraction" else 1
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            channel_moments.launches = 0
+            batch = net_batch(key, np.random.RandomState(6), 2, 512, 1024, dev)
+            with torch.no_grad():
+                loss, aux = forward_loss(copy.deepcopy(model).to(dev), cfg, batch, False,
+                                         torch.float32)
+            logits = aux["logits"]
+            tx = make_optimizer(lr=1e-2, num_warmup_steps=1, num_training_steps=50)
+            state = init_train_state(copy.deepcopy(model).to(dev), tx)
+            step = make_train_step(forward_loss, cfg, tx, compute_dtype=torch.float32)
+            stats = [{"forward_loss": loss.item()}]
+            for _ in range(steps):
+                state, st = step(state, batch)
+                stats.append({k: v.item() for k, v in st.items()})
+            if key == "vool/semantic_abstraction":
+                logits = make_eval_step(forward_loss, cfg, compute_dtype=torch.float32)(
+                    state.model, batch)["logits"]
+            runs[dev] = (stats, logits.cpu(), channel_moments.launches,
+                         {k: v.detach().cpu() for k, v in state.model.named_parameters()})
+        (cs, cl, _, cp), (gs, gl, launches, gp) = runs["cpu"], runs["cuda"]
+        for i, (a, b) in enumerate(zip(cs, gs)):
+            for k in ("forward_loss", "loss", "grad_norm"):
+                if k in a and not abs(a[k] - b[k]) <= 1e-4 * abs(a[k]):
+                    raise AssertionError(f"small {key} step {i} {k}: cpu {a[k]} card {b[k]}")
+        torch.testing.assert_close(gl, cl, rtol=1e-4, atol=1e-5)
+        for k in cp:
+            torch.testing.assert_close(gp[k], cp[k], rtol=1e-4, atol=1e-5, msg=k)
+        if launches <= 0:
+            raise AssertionError(f"small {key}: the card run launched no channel_moments")
+        print(f"[small-nets] {key} card vs cpu: {gs} vs {cs}; max|logit diff| "
+              f"{(gl - cl).abs().max().item()}; max|param diff| "
+              f"{max((gp[k] - cp[k]).abs().max().item() for k in cp)} over {len(cp)} "
+              f"tensors; channel_moments launches {launches} card={card}", flush=True)
+
+
+def vool_batch(rs, device):
+    """The scripts/profile_vool_step.py batch: 80,000 input points, target
+    and reference saliency of 4 descriptions, 4 x 400,000 query points,
+    0/1 labels, relation ids in 0..5, no masks."""
+    import torch
+
+    batch = {
+        "input_xyz_pts": rs.uniform(-1, 1.9, (1, 80000, 3)).astype(np.float32),
+        "input_target_saliency_pts": rs.randn(1, 4, 80000, 1).astype(np.float32),
+        "input_reference_saliency_pts": rs.randn(1, 4, 80000, 1).astype(np.float32),
+        "output_xyz_pts": rs.uniform(-1, 1.9, (1, 4, 400000, 3)).astype(np.float32),
+        "output_label_pts": rs.randint(0, 2, (1, 4, 400000)).astype(np.float32),
+        "spatial_relation_id": rs.randint(0, 6, (1, 4)).astype(np.int32),
+        "out_of_bounds_pts": np.zeros((1, 4, 400000), bool),
+        "padding_mask": np.zeros((1, 4), bool),
+    }
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def phase_vool(card: str):
+    """The SemAbsVOOL train step at full width through the runtime's entry
+    points, then its eval step and the eval loop's metric pass."""
+    import torch
+
+    from semantic_abstraction_tpu_torch.models import SemAbsVOOLConfig, init_net
+    from semantic_abstraction_tpu_torch.ops.channel_moments import channel_moments
+    from semantic_abstraction_tpu_torch.runtime import (
+        eval_cutoffs_for, init_train_state, make_eval_step, make_optimizer,
+        make_train_step, point_and_voxel_stats, vool_forward_loss)
+
+    cfg = SemAbsVOOLConfig()
+    t0 = time.perf_counter()
+    tx = make_optimizer(num_training_steps=1000)
+    state = init_train_state(init_net(0, cfg), tx)
+    step = make_train_step(vool_forward_loss, cfg, tx, compute_dtype=torch.bfloat16)
+    batch = vool_batch(np.random.RandomState(0), "cuda")
+    torch.cuda.synchronize()
+    print(f"[vool] weights and batch built in {time.perf_counter() - t0:.1f} s "
+          f"({sum(p.numel() for p in state.model.parameters())} parameters)", flush=True)
+    phase_bf16_vs_f32(card, "vool-bf16", vool_forward_loss, cfg, state.model, batch,
+                      loss_rtol=1e-3)
+
+    t0 = time.perf_counter()
+    state, stats = step(state, batch)
+    torch.cuda.synchronize()
+    print(f"[vool] warm-up step {time.perf_counter() - t0:.3f} s loss "
+          f"{stats['loss'].item()}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    channel_moments.launches = 0
+    times = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, stats = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {"channel_moments": channel_moments.launches}
+    loss, grad_norm = stats["loss"].item(), stats["grad_norm"].item()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not (np.isfinite(loss) and np.isfinite(grad_norm) and grad_norm > 0):
+        raise AssertionError(f"vool step: loss {loss} grad_norm {grad_norm}")
+    if launches["channel_moments"] <= 0:
+        raise AssertionError("the VOOL path launched no channel_moments kernel")
+
+    eval_step = make_eval_step(vool_forward_loss, cfg, compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    aux = eval_step(state.model, batch)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    logits = aux["logits"]
+    if logits.shape != (1, 4, 400000) or not torch.isfinite(logits).all():
+        raise AssertionError(f"vool eval logits {tuple(logits.shape)} not finite")
+    cutoffs = eval_cutoffs_for("vool", detailed=True)
+    t0 = time.perf_counter()
+    metrics = point_and_voxel_stats(logits, batch["output_label_pts"],
+                                    batch["output_xyz_pts"], aux["ignore"], cutoffs,
+                                    cfg.completion.scene_bounds, ((32, 32, 32),))
+    torch.cuda.synchronize()
+    metrics_s = time.perf_counter() - t0
+    for k, v in metrics.items():
+        if v.shape != (len(cutoffs), 1, 4) or not torch.isfinite(v[~v.isnan()]).all():
+            raise AssertionError(f"vool metric {k}: {tuple(v.shape)} or not finite")
+    best = metrics["voxel32x32x32_iou"].nanmean(dim=(1, 2))
+    print(f"[vool] step seconds {times} steps/s {TIMED_STEPS / sum(times)} "
+          f"loss {loss} accuracy {stats['accuracy'].item()} grad_norm {grad_norm} "
+          f"peak mem GB {peak:.2f} launches {launches} channel_moments per step "
+          f"{launches['channel_moments'] / TIMED_STEPS} eval step {eval_s:.3f} s "
+          f"(loss {aux['loss'].item()}); {len(metrics)} metrics at {len(cutoffs)} "
+          f"cutoffs in {metrics_s:.3f} s, voxel IoU by cutoff "
+          f"{[round(v, 4) for v in best.tolist()]} card={card}", flush=True)
     return state, step, batch, launches, sum(times) / len(times)
 
 
@@ -730,6 +967,12 @@ def main() -> int:
     state, step, batch, ovssc_launches, step_s = phase_ovssc(card)
     phase_profile(card, "ovssc train step", lambda: step(state, batch), step_s,
                   ("moments_partial", "moments_finish"))
+    del state, step, batch
+    torch.cuda.empty_cache()
+    phase_small_nets(card)
+    state, step, batch, vool_launches, vool_s = phase_vool(card)
+    phase_profile(card, "vool train step", lambda: step(state, batch), vool_s,
+                  ("moments_partial", "moments_finish"), top=16)
 
     # the kernels line. fused_mha: bf16 at the ViT-B/32 path's dominant
     # chunk (48 rows, T = 50), errors over every bf16 shape of the two
@@ -739,9 +982,10 @@ def main() -> int:
     # T = 257), errors over its bf16 shapes (relative to |R| + |cam| @ |R|,
     # tolerance 1e-5), launches on the ViT-L/14 path; no single PyTorch
     # call computes it. channel_moments: bf16 at level 0 (4, 16, 128^3),
-    # errors over the 11 bf16 UNet shapes (relative to the sum of |x| for
-    # s1 and to s2, tolerance 1e-5; the absolute error is one of sums near
-    # 1e7); launches on the OVSSC path's timed steps.
+    # errors over the 22 bf16 UNet shapes at B = 4 and 8 (relative to the
+    # sum of |x| for s1 and to s2, tolerance 1e-5; the absolute error is one
+    # of sums near 1e7); launches on the OVSSC path's timed steps, and under "vool" the
+    # VOOL path's with the time at its level-0 shape (8, 16, 128^3).
     def pick(rs, **kw):
         return next(r for r in rs if all(r[k] == v for k, v in kw.items()))
 
@@ -754,7 +998,8 @@ def main() -> int:
                  and (r["B"], r["T"]) in ((12, 50), (42, 50), (45, 50), (48, 50), (48, 257))]
     cmain = pick(crows, dtype="bfloat16", T=257)
     cbf16 = [r for r in crows if r["dtype"] == "bfloat16"]
-    mmain = pick(mrows, dtype="bfloat16", S=128**3)
+    mmain = pick(mrows, dtype="bfloat16", B=4, S=128**3)
+    mvool = pick(mrows, dtype="bfloat16", B=8, S=128**3)
     mbf16 = [r for r in mrows if r["dtype"] == "bfloat16"]
     kernels = [{
         "name": "fused_mha", "route": "cuda",
@@ -781,6 +1026,7 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in mbf16),
         "max_rel_err": max(r["max_rel_err"] for r in mbf16),
         **timing(mmain),
+        "vool": {"launches": vool_launches["channel_moments"], **timing(mvool)},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

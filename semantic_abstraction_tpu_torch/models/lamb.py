@@ -14,6 +14,12 @@ The learning rate of an update is ``lr * schedule(count)`` with ``count``
 already incremented, so the first update uses ``schedule(1)`` (as the
 optax form does; a stock ``LambdaLR`` would use ``schedule(0)``). Every
 quantity stays on the parameters' device: a step reads nothing back.
+
+A parameter without a gradient (``p.grad is None``, e.g. a module the
+forward never reads) takes a zero gradient, as ``jax.value_and_grad``
+gives it in the JAX package: its moments decay, its step is counted, and
+the weight decay still moves it. (The reference's torch Lamb skips such a
+parameter.)
 """
 from __future__ import annotations
 
@@ -42,9 +48,7 @@ class Lamb(torch.optim.Optimizer):
         for group in self.param_groups:
             b1, b2 = group["betas"]
             for p in group["params"]:
-                if p.grad is None:
-                    continue
-                g = p.grad
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
                 state = self.state[p]
                 if not state:
                     state["step"] = 0

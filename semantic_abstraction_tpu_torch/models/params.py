@@ -1,4 +1,4 @@
-"""Parameter containers of the OVSSC models.
+"""Parameter containers of the nets.
 
 The forward passes are plain functions over these modules (as in the JAX
 package, where they are functions over a pytree); the modules only hold

@@ -89,3 +89,10 @@ def ovssc_ignore_mask(padding_mask: torch.Tensor, out_of_bounds_pts: torch.Tenso
     if out_of_frustum_pts_mask is not None:
         ignore = ignore | out_of_frustum_pts_mask.to(torch.bool)
     return ignore
+
+
+def vool_ignore_mask(padding_mask: torch.Tensor,
+                     out_of_bounds_pts: torch.Tensor) -> torch.Tensor:
+    """(B, D) padding and (B, D, M) out-of-bounds -> the (B, D, M) ignore
+    mask of the VOOL accuracy (no frustum mask)."""
+    return padding_mask[..., None] | out_of_bounds_pts.to(torch.bool)

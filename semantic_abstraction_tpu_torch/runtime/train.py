@@ -12,9 +12,12 @@ are the JAX package's::
     step = make_train_step(ovssc_forward_loss, cfg, tx)
     state, stats = step(state, batch)   # stats: loss, accuracy, grad_norm
 
-Unlike JAX, the state is updated in place (the module and the optimizer
-are mutable); the step returns it for the same call shape. The stats are
-0-dim tensors on the model's device, read back only by the caller.
+``FORWARD_LOSS`` holds the forward-loss of each of the five nets under
+"task/approach". Unlike JAX, the state is updated in place (the module and
+the optimizer are mutable); the step returns it for the same call shape.
+The stats are 0-dim tensors on the model's device, read back only by the
+caller. A parameter the forward does not read gets no ``.grad``; LAMB
+takes it as a zero gradient, as JAX's ``value_and_grad`` gives it.
 """
 from __future__ import annotations
 
@@ -25,8 +28,19 @@ import torch
 from torch import nn
 
 from ..models.lamb import Lamb
-from ..models.nets import SemAbs3DConfig, semabs3d_forward
-from .losses import ovssc_ignore_mask, ovssc_loss
+from ..models.nets import (
+    ClipSpatialVOOLConfig,
+    SemAbs3DConfig,
+    SemAbsVOOLConfig,
+    SemanticAwareOVSSCConfig,
+    SemanticAwareVOOLConfig,
+    clip_spatial_vool_forward,
+    semabs3d_forward,
+    semabs_vool_forward,
+    semantic_aware_ovssc_forward,
+    semantic_aware_vool_forward,
+)
+from .losses import ovssc_ignore_mask, ovssc_loss, vool_ignore_mask, vool_loss
 from .schedule import Schedule, make_schedule
 
 
@@ -94,11 +108,104 @@ def ovssc_forward_loss(model, cfg: SemAbs3DConfig, batch: dict,
         valid_mask=batch.get("input_valid_mask"),
         compute_dtype=compute_dtype,
     )
+    return _ovssc_stats(logits, batch, balance_positive_negative, per_sample)
+
+
+def _ovssc_stats(logits, batch, balance_positive_negative, per_sample):
     ignore = ovssc_ignore_mask(batch["padding_mask"], batch["out_of_bounds_pts"],
                                batch.get("out_of_frustum_pts_mask"))
     stats = ovssc_loss(logits, batch["output_label_pts"], ignore,
                        balance_positive_negative, per_sample=per_sample)
     return stats["loss"], {**stats, "logits": logits, "ignore": ignore}
+
+
+def _vool_stats(logits, batch, balance_positive_negative, per_sample):
+    ignore = vool_ignore_mask(batch["padding_mask"], batch["out_of_bounds_pts"])
+    stats = vool_loss(logits, batch["output_label_pts"], ignore,
+                      balance_positive_negative, per_sample=per_sample)
+    return stats["loss"], {**stats, "logits": logits, "ignore": ignore}
+
+
+def semaware_ovssc_forward_loss(model, cfg: SemanticAwareOVSSCConfig, batch: dict,
+                                balance_positive_negative: bool = False,
+                                compute_dtype: torch.dtype = torch.bfloat16,
+                                per_sample: bool = False):
+    """SemanticAwareOVSSC: the OVSSC loss over its class-pointer logits."""
+    logits = semantic_aware_ovssc_forward(
+        model, cfg,
+        input_xyz_pts=batch["input_xyz_pts"],
+        input_feature_pts=batch["input_feature_pts"],
+        output_xyz_pts=batch["output_xyz_pts"],
+        semantic_class_features=batch["semantic_class_features"],
+        tsdf_vol=batch.get("tsdf_vol"),
+        valid_mask=batch.get("input_valid_mask"),
+        compute_dtype=compute_dtype,
+    )
+    return _ovssc_stats(logits, batch, balance_positive_negative, per_sample)
+
+
+def vool_forward_loss(model, cfg: SemAbsVOOLConfig, batch: dict,
+                      balance_positive_negative: bool = False,
+                      compute_dtype: torch.dtype = torch.bfloat16,
+                      per_sample: bool = False):
+    """SemAbsVOOL loss (reference train_vool.py:118-206): the unmasked BCE,
+    accuracy over the points not ignored."""
+    logits = semabs_vool_forward(
+        model, cfg,
+        input_xyz_pts=batch["input_xyz_pts"],
+        input_target_saliency_pts=batch["input_target_saliency_pts"],
+        input_reference_saliency_pts=batch["input_reference_saliency_pts"],
+        output_xyz_pts=batch["output_xyz_pts"],
+        spatial_relation_id=batch["spatial_relation_id"],
+        tsdf_vol=batch.get("tsdf_vol"),
+        valid_mask=batch.get("input_valid_mask"),
+        compute_dtype=compute_dtype,
+    )
+    return _vool_stats(logits, batch, balance_positive_negative, per_sample)
+
+
+def semaware_vool_forward_loss(model, cfg: SemanticAwareVOOLConfig, batch: dict,
+                               balance_positive_negative: bool = False,
+                               compute_dtype: torch.dtype = torch.bfloat16,
+                               per_sample: bool = False):
+    logits = semantic_aware_vool_forward(
+        model, cfg,
+        input_xyz_pts=batch["input_xyz_pts"],
+        input_rgb_pts=batch["input_rgb_pts"],
+        output_xyz_pts=batch["output_xyz_pts"],
+        spatial_relation_id=batch["spatial_relation_id"],
+        target_obj_features=batch["target_obj_features"],
+        reference_obj_features=batch["reference_obj_features"],
+        tsdf_vol=batch.get("tsdf_vol"),
+        valid_mask=batch.get("input_valid_mask"),
+        compute_dtype=compute_dtype,
+    )
+    return _vool_stats(logits, batch, balance_positive_negative, per_sample)
+
+
+def clipspatial_vool_forward_loss(model, cfg: ClipSpatialVOOLConfig, batch: dict,
+                                  balance_positive_negative: bool = False,
+                                  compute_dtype: torch.dtype = torch.bfloat16,
+                                  per_sample: bool = False):
+    logits = clip_spatial_vool_forward(
+        model, cfg,
+        input_xyz_pts=batch["input_xyz_pts"],
+        input_description_saliency_pts=batch["input_description_saliency_pts"],
+        output_xyz_pts=batch["output_xyz_pts"],
+        tsdf_vol=batch.get("tsdf_vol"),
+        valid_mask=batch.get("input_valid_mask"),
+        compute_dtype=compute_dtype,
+    )
+    return _vool_stats(logits, batch, balance_positive_negative, per_sample)
+
+
+FORWARD_LOSS = {
+    "ovssc/semantic_abstraction": ovssc_forward_loss,
+    "ovssc/semantic_aware": semaware_ovssc_forward_loss,
+    "vool/semantic_abstraction": vool_forward_loss,
+    "vool/semantic_aware": semaware_vool_forward_loss,
+    "vool/clip_spatial": clipspatial_vool_forward_loss,
+}
 
 
 def make_train_step(forward_loss: Callable, cfg, tx: Optimizer,

@@ -17,7 +17,7 @@ import torch
 from semantic_abstraction_tpu_torch.ops import channel_moments as cm
 
 # (C, S) of every GroupNorm of the full-size UNet (f_maps 16, 6 levels,
-# 128^3 voxels), at B = 4 volumes
+# 128^3 voxels); OVSSC runs them at B = 4 volumes, VOOL at B = 8
 UNET_SHAPES = [(16, 128**3), (16, 64**3), (32, 64**3), (32, 32**3), (64, 32**3),
                (64, 16**3), (128, 16**3), (128, 8**3), (256, 8**3), (256, 4**3),
                (512, 4**3)]
@@ -43,9 +43,10 @@ def assert_moments_close(got, x):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,s", UNET_SHAPES)
-def test_kernel_matches_plain_version(cuda, dtype, c, s):
+@pytest.mark.parametrize("b", [4, 8])
+def test_kernel_matches_plain_version(cuda, dtype, c, s, b):
     g = torch.Generator(device=cuda).manual_seed(c + s)
-    x = (torch.randn(4, c, s, device=cuda, generator=g) * 2 + 0.5).to(dtype)
+    x = (torch.randn(b, c, s, device=cuda, generator=g) * 2 + 0.5).to(dtype)
     before = cm.channel_moments.launches
     got = cm.channel_moments(x)
     torch.cuda.synchronize()

@@ -28,7 +28,8 @@ def test_port_modules_are_found():
                  "cli.generate_relevancy", "ops.voxel", "ops.channel_moments",
                  "models.params", "models.unet3d", "models.decoder", "models.nets",
                  "models.convert", "models.lamb", "runtime.losses",
-                 "runtime.schedule", "runtime.train"):
+                 "runtime.schedule", "runtime.train", "runtime.metrics",
+                 "runtime.checkpoint"):
         assert f"semantic_abstraction_tpu_torch.{name}" in mods
 
 

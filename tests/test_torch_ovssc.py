@@ -231,7 +231,7 @@ def test_semabs3d_bf16_forward_matches_jax():
 
 def _reference_state_dict(rs, cfg):
     """A SemAbs3D state dict in the reference layout, DDP-prefixed."""
-    model = tnets.init_semabs3d(0, cfg, device="cpu")
+    model = tnets.init_net(0, cfg, device="cpu")
     sd = {f"module.{k}": rs.randn(*v.shape).astype(np.float32) * 0.3
           for k, v in model.state_dict().items()}
     sd["module.steps"] = np.full(1, 1234.0, np.float32)
@@ -263,16 +263,15 @@ def test_relations_copy_matches_jax():
 def test_init_semabs3d_matches_jax_shapes_and_is_seeded():
     jcfg, tcfg = _cfgs(**TINY)
     want = tconv.jax_params_to_state_dict(
-        _np_tree(jnets.init_semabs3d(jax.random.PRNGKey(0), jcfg)))
-    a = tnets.init_semabs3d(11, tcfg, device="cpu").state_dict()
-    b = tnets.init_semabs3d(11, tcfg, device="cpu").state_dict()
+        _np_tree(jnets.init_semabs3d(jax.random.PRNGKey(0), jcfg)), tcfg)
+    a = tnets.init_net(11, tcfg, device="cpu").state_dict()
+    b = tnets.init_net(11, tcfg, device="cpu").state_dict()
     assert set(a) == set(want) | {"steps"}
     for k, v in want.items():
         assert tuple(a[k].shape) == v.shape, k
         torch.testing.assert_close(a[k], b[k], atol=0, rtol=0)
     with pytest.raises(ValueError):
-        tnets.init_semabs3d(0, dataclasses.replace(tcfg, reduce_method="mean"),
-                            device="cpu")
+        tnets.init_net(0, dataclasses.replace(tcfg, reduce_method="mean"), device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -367,7 +366,7 @@ def test_three_train_steps_match_jax():
             np.testing.assert_allclose(float(tstats[k]), float(jstats[k]), rtol=1e-4,
                                        err_msg=f"step {i + 1} {k}")
     assert tstate.step == 3 and int(jstate.step) == 3
-    want = tconv.jax_params_to_state_dict(_np_tree(jstate.params))
+    want = tconv.jax_params_to_state_dict(_np_tree(jstate.params), tcfg)
     got = dict(tstate.model.named_parameters())
     assert got.keys() == want.keys()
     for k, v in want.items():
