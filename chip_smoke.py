@@ -13,10 +13,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    577, and (checked, not timed) at B = 1 on every ragged edge of its
    64-row and 64-key tiles up to its 2048-token bound; ``cam_accumulate``
    at the ViT-B/32 and ViT-L/14 shapes of the multi-tail gradcam;
-   ``channel_moments`` at the 11 (C, S) shapes of the full-size UNet's
-   GroupNorms, at B = 4 (OVSSC) and B = 8 (VOOL). Times are device
-   times: the calls captured in a CUDA graph and replayed, so that the
-   host's launch rate does not set them;
+   ``channel_moments`` and its backward kernel at the 11 (C, S) shapes of
+   the full-size UNet's GroupNorms, at B = 4 (OVSSC) and B = 8 (VOOL) (the
+   backward bit for bit). Times are device times: the calls captured in a
+   CUDA graph and replayed, so that the host's launch rate does not set
+   them;
 3. run small ``ClipSaliency`` pipelines on the card and on the CPU with the
    same weights and jitter draws, and the maps must agree: a single-tail
    one at T = 50 and a multi-tail one (4 blocks, num_layers=0, patch 14)
@@ -40,7 +41,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (80,000 input points, 4 x 400,000 query points); first the bf16 eval
    and train step against the same in f32 from the same weights, then one
    warm-up step, timed steps and one eval step;
-8. profile one more train step;
+8. profile one more train step, with the device time of the moments
+   backward (the autograd node ``_ChannelMomentsBackward``);
 9. the five nets of ``FORWARD_LOSS`` at a small size (16^3 voxels, 8
    channels, 3 levels, 2 descriptions or patches), card vs CPU from one
    init, f32 with TF32 off: the forward-loss and one train step of each,
@@ -52,7 +54,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    from numpy seed 0; bf16 against f32, one warm-up step, timed steps, an
    eval step and the 25-cutoff point and 32^3 voxel metrics over its
    logits;
-11. profile one more VOOL train step.
+11. profile one more VOOL train step, likewise.
 
 Each path's kernel launch counts are set to 0 just before its timed run
 and read just after. Prints a ``{"kernels": [...]}`` line, the card's name
@@ -288,16 +290,30 @@ def moments_bound(b: int, c: int, s: int, dtype: str):
     return 1e3 * max(bytes_s, flops_s), ("bytes" if bytes_s >= flops_s else "operations")
 
 
+def moments_backward_bound(b: int, c: int, s: int, dtype: str):
+    """(least ms, "bytes" or "operations") for the moments' backward: x
+    read once, gx written once and the two (B, C) f32 gradients read once
+    at the HBM rate, or 3 flops an element (two products and a sum) at the
+    f32 peak."""
+    elt = 2 if dtype == "bfloat16" else 4
+    bytes_s = (2 * b * c * s * elt + 8 * b * c) / HBM_BYTES_PER_S
+    flops_s = 3 * b * c * s / PEAK_FLOPS["float32"]
+    return 1e3 * max(bytes_s, flops_s), ("bytes" if bytes_s >= flops_s else "operations")
+
+
 def phase_moments(card: str):
-    """channel_moments vs channel_moments_reference at the UNet's shapes.
+    """channel_moments vs channel_moments_reference at the UNet's shapes,
+    and its backward kernel vs channel_moments_backward_reference.
     Tolerance: the same f32 values summed in another order, so s2 (terms
-    >= 0) within rtol 1e-5 and s1 within 1e-5 of sum |x| (it cancels)."""
+    >= 0) within rtol 1e-5 and s1 within 1e-5 of sum |x| (it cancels); the
+    backward bit for bit. Returns (forward rows, backward rows)."""
     import torch
 
     from semantic_abstraction_tpu_torch.ops.channel_moments import (
-        channel_moments, channel_moments_reference)
+        channel_moments, channel_moments_backward, channel_moments_backward_reference,
+        channel_moments_reference)
 
-    rows = []
+    rows, brows = [], []
     g = torch.Generator(device="cuda").manual_seed(0)
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for b, c, s in MOMENTS_SHAPES:
@@ -323,8 +339,32 @@ def phase_moments(card: str):
             rows.append(row)
             print(f"[kernel] channel_moments {json.dumps(row)} tol rel 1e-5 "
                   f"card={card}", flush=True)
-            del x, s1, s2, r1, r2
-    return rows
+            g1 = torch.randn(b, c, device="cuda", generator=g)
+            g2 = torch.randn(b, c, device="cuda", generator=g) / s
+            gx = channel_moments_backward(x, g1, g2)
+            ref = channel_moments_backward_reference(x, g1, g2)
+            torch.cuda.synchronize()
+            err = (gx.float() - ref.float()).abs().max().item()
+            if not torch.equal(gx, ref):
+                raise AssertionError(f"channel_moments backward {dname} B={b} C={c} S={s}: "
+                                     f"not bit-equal to the plain version, max err {err}")
+            iters = 20 if b * c * s >= 2**24 else 100
+            # the library call: addcmul computes g1 + 2 x g2 in f32 and
+            # rounds once into gx's dtype, one elementwise pass
+            lib_out = torch.empty_like(x)
+            brow = dict(dtype=dname, B=b, C=c, S=s, max_abs_err=err,
+                        ms=time_ms(lambda: channel_moments_backward(x, g1, g2), iters),
+                        plain_ms=time_ms(
+                            lambda: channel_moments_backward_reference(x, g1, g2), iters),
+                        library_ms=time_ms(lambda: torch.addcmul(
+                            g1[..., None], x, g2[..., None], value=2.0, out=lib_out), iters))
+            brow["bound_ms"], brow["bound_by"] = moments_backward_bound(b, c, s, dname)
+            brows.append(brow)
+            print(f"[kernel] channel_moments_backward {json.dumps(brow)} bit-equal "
+                  f"card={card}", flush=True)
+            del x, s1, s2, r1, r2, gx, ref, lib_out
+            torch.cuda.empty_cache()
+    return rows, brows
 
 
 def small_config(**kw):
@@ -506,7 +546,8 @@ def phase_ovssc(card: str):
     import torch
 
     from semantic_abstraction_tpu_torch.models import SemAbs3DConfig, init_net
-    from semantic_abstraction_tpu_torch.ops.channel_moments import channel_moments
+    from semantic_abstraction_tpu_torch.ops.channel_moments import (
+        channel_moments, channel_moments_backward)
     from semantic_abstraction_tpu_torch.ops.fused_mha import fused_mha
     from semantic_abstraction_tpu_torch.runtime import (
         init_train_state, make_eval_step, make_optimizer, make_train_step,
@@ -530,7 +571,7 @@ def phase_ovssc(card: str):
           f"{stats['loss'].item()}", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    fused_mha.launches = channel_moments.launches = 0
+    fused_mha.launches = channel_moments.launches = channel_moments_backward.launches = 0
     times = []
     for _ in range(TIMED_STEPS):
         t0 = time.perf_counter()
@@ -538,14 +579,15 @@ def phase_ovssc(card: str):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = {"fused_mha": fused_mha.launches,
-                "channel_moments": channel_moments.launches}
+                "channel_moments": channel_moments.launches,
+                "channel_moments_backward": channel_moments_backward.launches}
     loss, grad_norm = stats["loss"].item(), stats["grad_norm"].item()
     peak = torch.cuda.max_memory_allocated() / 1e9
 
     if not (np.isfinite(loss) and np.isfinite(grad_norm) and grad_norm > 0):
         raise AssertionError(f"ovssc step: loss {loss} grad_norm {grad_norm}")
-    if launches["channel_moments"] <= 0:
-        raise AssertionError("the OVSSC path launched no channel_moments kernel")
+    if launches["channel_moments"] <= 0 or launches["channel_moments_backward"] <= 0:
+        raise AssertionError(f"the OVSSC path left a moments kernel unlaunched: {launches}")
     eval_step = make_eval_step(ovssc_forward_loss, cfg, compute_dtype=torch.bfloat16)
     t0 = time.perf_counter()
     aux = eval_step(state.model, batch)
@@ -556,7 +598,8 @@ def phase_ovssc(card: str):
     print(f"[ovssc] step seconds {times} steps/s {TIMED_STEPS / sum(times)} "
           f"loss {loss} accuracy {stats['accuracy'].item()} grad_norm {grad_norm} "
           f"peak mem GB {peak:.2f} launches {launches} channel_moments per step "
-          f"{launches['channel_moments'] / TIMED_STEPS} eval step {eval_s:.3f} s "
+          f"{launches['channel_moments'] / TIMED_STEPS} backward per step "
+          f"{launches['channel_moments_backward'] / TIMED_STEPS} eval step {eval_s:.3f} s "
           f"(loss {aux['loss'].item()}) card={card}", flush=True)
     return state, step, batch, launches, sum(times) / len(times)
 
@@ -702,7 +745,8 @@ def phase_vool(card: str):
     import torch
 
     from semantic_abstraction_tpu_torch.models import SemAbsVOOLConfig, init_net
-    from semantic_abstraction_tpu_torch.ops.channel_moments import channel_moments
+    from semantic_abstraction_tpu_torch.ops.channel_moments import (
+        channel_moments, channel_moments_backward)
     from semantic_abstraction_tpu_torch.runtime import (
         eval_cutoffs_for, init_train_state, make_eval_step, make_optimizer,
         make_train_step, point_and_voxel_stats, vool_forward_loss)
@@ -726,20 +770,21 @@ def phase_vool(card: str):
           f"{stats['loss'].item()}", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    channel_moments.launches = 0
+    channel_moments.launches = channel_moments_backward.launches = 0
     times = []
     for _ in range(TIMED_STEPS):
         t0 = time.perf_counter()
         state, stats = step(state, batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    launches = {"channel_moments": channel_moments.launches}
+    launches = {"channel_moments": channel_moments.launches,
+                "channel_moments_backward": channel_moments_backward.launches}
     loss, grad_norm = stats["loss"].item(), stats["grad_norm"].item()
     peak = torch.cuda.max_memory_allocated() / 1e9
     if not (np.isfinite(loss) and np.isfinite(grad_norm) and grad_norm > 0):
         raise AssertionError(f"vool step: loss {loss} grad_norm {grad_norm}")
-    if launches["channel_moments"] <= 0:
-        raise AssertionError("the VOOL path launched no channel_moments kernel")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"the VOOL path left a moments kernel unlaunched: {launches}")
 
     eval_step = make_eval_step(vool_forward_loss, cfg, compute_dtype=torch.bfloat16)
     t0 = time.perf_counter()
@@ -763,7 +808,8 @@ def phase_vool(card: str):
     print(f"[vool] step seconds {times} steps/s {TIMED_STEPS / sum(times)} "
           f"loss {loss} accuracy {stats['accuracy'].item()} grad_norm {grad_norm} "
           f"peak mem GB {peak:.2f} launches {launches} channel_moments per step "
-          f"{launches['channel_moments'] / TIMED_STEPS} eval step {eval_s:.3f} s "
+          f"{launches['channel_moments'] / TIMED_STEPS} backward per step "
+          f"{launches['channel_moments_backward'] / TIMED_STEPS} eval step {eval_s:.3f} s "
           f"(loss {aux['loss'].item()}); {len(metrics)} metrics at {len(cutoffs)} "
           f"cutoffs in {metrics_s:.3f} s, voxel IoU by cutoff "
           f"{[round(v, 4) for v in best.tolist()]} card={card}", flush=True)
@@ -878,12 +924,13 @@ def phase_vitl(card: str):
 
 
 def phase_profile(card: str, label: str, run, unprofiled_s: float, port_kernels,
-                  top: int = 12):
+                  top: int = 12, nodes=()):
     """Device time by kernel over one ``run()`` (torch.profiler), and the
     share of the path's own kernels (device function names in
-    ``port_kernels``). The busy share is given against the profiled wall and
-    against ``unprofiled_s``, the mean unprofiled time of the same work (the
-    profiler slows the host)."""
+    ``port_kernels``) and of the autograd nodes named in ``nodes`` (every
+    device kernel each launched). The busy share is given against the
+    profiled wall and against ``unprofiled_s``, the mean unprofiled time of
+    the same work (the profiler slows the host)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -920,6 +967,15 @@ def phase_profile(card: str, label: str, run, unprofiled_s: float, port_kernels,
         print(f"[profile]   port kernel {name}: {us / 1e3:.3f} ms in "
               f"{sum(e.count for e in mine)} launches = {100 * us / total_us:.2f}% "
               f"of device time")
+    for name in nodes:
+        # the node and the engine's evaluate_function around it: the
+        # largest holds every kernel the node launched
+        mine = [e for e in prof.key_averages()
+                if e.device_type != torch.autograd.DeviceType.CUDA and name in e.key]
+        us = max((getattr(e, "device_time_total", 0.0) for e in mine), default=0.0)
+        print(f"[profile]   autograd node {name}: {us / 1e3:.3f} ms of device time in "
+              f"{max((e.count for e in mine), default=0)} calls = "
+              f"{100 * us / total_us:.2f}% of device time")
 
 
 def main() -> int:
@@ -949,7 +1005,7 @@ def main() -> int:
 
     rows = phase_kernel(card)
     crows = phase_cam(card)
-    mrows = phase_moments(card)
+    mrows, brows = phase_moments(card)
     phase_small(card, "small", small_config(), 1, (fused_mha,))
     phase_small(card, "small-multitail", small_config(vision_layers=4, vision_patch_size=14),
                 0, (fused_mha, cam_accumulate))
@@ -966,13 +1022,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     state, step, batch, ovssc_launches, step_s = phase_ovssc(card)
     phase_profile(card, "ovssc train step", lambda: step(state, batch), step_s,
-                  ("moments_partial", "moments_finish"))
+                  ("moments_fwd", "moments_bwd"), nodes=("_ChannelMomentsBackward",))
     del state, step, batch
     torch.cuda.empty_cache()
     phase_small_nets(card)
     state, step, batch, vool_launches, vool_s = phase_vool(card)
     phase_profile(card, "vool train step", lambda: step(state, batch), vool_s,
-                  ("moments_partial", "moments_finish"), top=16)
+                  ("moments_fwd", "moments_bwd"), top=16, nodes=("_ChannelMomentsBackward",))
 
     # the kernels line. fused_mha: bf16 at the ViT-B/32 path's dominant
     # chunk (48 rows, T = 50), errors over every bf16 shape of the two
@@ -985,7 +1041,10 @@ def main() -> int:
     # errors over the 22 bf16 UNet shapes at B = 4 and 8 (relative to the
     # sum of |x| for s1 and to s2, tolerance 1e-5; the absolute error is one
     # of sums near 1e7); launches on the OVSSC path's timed steps, and under "vool" the
-    # VOOL path's with the time at its level-0 shape (8, 16, 128^3).
+    # VOOL path's with the time at its level-0 shape (8, 16, 128^3). Its
+    # "backward" entry: the backward kernel likewise (bit-equal to its plain
+    # version, so max_abs_err 0; the library call is one torch.addcmul into
+    # a tensor of x's dtype).
     def pick(rs, **kw):
         return next(r for r in rs if all(r[k] == v for k, v in kw.items()))
 
@@ -1001,6 +1060,8 @@ def main() -> int:
     mmain = pick(mrows, dtype="bfloat16", B=4, S=128**3)
     mvool = pick(mrows, dtype="bfloat16", B=8, S=128**3)
     mbf16 = [r for r in mrows if r["dtype"] == "bfloat16"]
+    bmain = pick(brows, dtype="bfloat16", B=4, S=128**3)
+    bvool = pick(brows, dtype="bfloat16", B=8, S=128**3)
     kernels = [{
         "name": "fused_mha", "route": "cuda",
         "source": "semantic_abstraction_tpu_torch/ops/csrc/fused_mha.cu",
@@ -1027,6 +1088,16 @@ def main() -> int:
         "max_rel_err": max(r["max_rel_err"] for r in mbf16),
         **timing(mmain),
         "vool": {"launches": vool_launches["channel_moments"], **timing(mvool)},
+        "backward": {
+            "name": "channel_moments_backward", "route": "cuda",
+            "source": "semantic_abstraction_tpu_torch/ops/csrc/channel_moments.cu",
+            "replaces": "semantic_abstraction_tpu/models/unet3d.py:75",
+            "launches": ovssc_launches["channel_moments_backward"],
+            "max_abs_err": max(r["max_abs_err"] for r in brows),
+            **timing(bmain),
+            "vool": {"launches": vool_launches["channel_moments_backward"],
+                     **timing(bvool)},
+        },
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

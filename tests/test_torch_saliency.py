@@ -1,7 +1,9 @@
 """The port's whole ``get_clip_saliency`` against the JAX package's on the
-CPU (small ViT: width 128 = 2 heads of 64, 2 blocks, num_layers=0 so the
-general gradcam path runs; jitter off, since the two frameworks' random
-draws differ and the jitter ops are held separately).
+CPU (small ViT: width 128 = 2 heads of 64, 2 blocks, num_layers=0, which
+leaves one tail block, so the closed-form single-tail gradcam runs; jitter
+off, since the two frameworks' random draws differ and the jitter ops are
+held separately). The general multi-tail gradcam inside ``ClipSaliency``
+is held by ``tests/test_torch_multitail.py``.
 
 Tolerance: the maps are float16; the f32 pipelines agree to ~1e-6, so the
 maps may differ by the f16 rounding of that: 2 ulp of the largest value

@@ -36,15 +36,17 @@ from torch_net_cases import (
     ALL_CASES,
     CASES,
     NEW_NETS,
+    OPT,
     batch,
+    bf16_and_f32_runs,
+    corners,
     jax_forward,
+    jax_rounding_linear,
+    jax_rounding_sampler,
     to_jax,
     to_torch,
     torch_forward,
 )
-
-OPT = dict(lr=1e-2, num_warmup_steps=1, num_training_steps=50)
-
 
 def _params_sd(model):
     """The port's parameters in the reference layout (no ``steps``)."""
@@ -339,44 +341,6 @@ def test_three_train_steps_match_jax(key):
 BF16_SEEDS = (10, 11, 12)
 
 
-def _corners(vol, coords):
-    """The 8 corner values (B, N, 8, C) of each sample of a (B, C, D, H, W)
-    volume and their f32 trilinear weights (B, N, 8), corners in (dz, dy,
-    dx) order, by the JAX sampler's index math (border clamp,
-    align_corners=True, coords[..., 0] indexing W)."""
-    b, c, d, h, w = vol.shape
-    top = torch.tensor([w - 1, h - 1, d - 1], dtype=torch.float32)
-    idx = torch.minimum(((coords + 1.0) * 0.5 * top).clamp_min(0.0), top)
-    lo = torch.minimum(torch.floor(idx), top)
-    frac = idx - lo
-    lo = lo.long()
-    hi = torch.minimum(lo + 1, top.long())
-    flat = vol.reshape(b, c, -1)
-    vals, weights = [], []
-    for dz in (0, 1):
-        for dy in (0, 1):
-            for dx in (0, 1):
-                x, y, z = ((hi if up else lo)[..., i] for i, up in enumerate((dx, dy, dz)))
-                lin = ((z * h + y) * w + x)[:, None].expand(b, c, -1)
-                vals.append(torch.gather(flat, 2, lin).transpose(1, 2))
-                fx, fy, fz = (f if up else 1 - f
-                              for f, up in zip(frac.unbind(-1), (dx, dy, dz)))
-                weights.append(fz * fy * fx)
-    return torch.stack(vals, 2), torch.stack(weights, -1)
-
-
-def _jax_rounding_sampler(vol, coords):
-    """The JAX package's bf16 sampler rounding: the weights rounded to the
-    volume's dtype, products and sum in f32, one rounding."""
-    vals, weights = _corners(vol, coords.float())
-    return (vals.float() * weights.to(vol.dtype).float()[..., None]).sum(2).to(vol.dtype)
-
-
-def _jax_rounding_linear(p, x):
-    """The JAX package's ``_linear``: x @ w rounded, then + b rounded."""
-    return torch.matmul(x, p.weight.to(x.dtype).t()) + p.bias.to(x.dtype)
-
-
 def test_bf16_sampler_differs_from_jax_only_in_its_weight_rounding():
     """On one bf16 volume, JAX's sampler is the trilinear sum with its
     weights rounded to bf16, bit for bit; the port's (torch's
@@ -393,38 +357,13 @@ def test_bf16_sampler_differs_from_jax_only_in_its_weight_rounding():
         jnp.asarray(vol.permute(0, 2, 3, 4, 1).float().numpy()).astype(jnp.bfloat16),
         jnp.asarray(coords.numpy()))
     want = torch.as_tensor(np.array(want.astype(jnp.float32))).bfloat16()
-    assert torch.equal(_jax_rounding_sampler(vol, coords), want)
-    vals, weights = _corners(vol, coords)
+    assert torch.equal(jax_rounding_sampler(vol, coords), want)
+    vals, weights = corners(vol, coords)
     port32 = grid_sample_3d(vol.float(), coords)
     torch.testing.assert_close(port32, (vals.float() * weights[..., None]).sum(2),
                                rtol=1e-6, atol=1e-7)
     port = grid_sample_3d(vol, coords)
     assert torch.equal(port, port32.bfloat16()) and not torch.equal(port, want)
-
-
-def _bf16_and_f32_runs(case, params, b):
-    """One train step and the eval step of each package at bf16 and at f32
-    from the same weights -> {(package, dtype): (stats as floats, logits)}."""
-    out = {}
-    for name, jdt, tdt in (("bf16", jnp.bfloat16, torch.bfloat16),
-                           ("f32", jnp.float32, torch.float32)):
-        jtx = jtrain.make_optimizer(**OPT)
-        _, js = jtrain.make_train_step(case.jax_loss(), case.jcfg, jtx, compute_dtype=jdt,
-                                       donate=False)(
-            jtrain.init_train_state(jax.tree_util.tree_map(jnp.asarray, params), jtx),
-            to_jax(b))
-        jl = jtrain.make_eval_step(case.jax_loss(), case.jcfg, compute_dtype=jdt)(
-            jax.tree_util.tree_map(jnp.asarray, params), to_jax(b))["logits"]
-        ttx = ttrain.make_optimizer(**OPT)
-        _, ts = ttrain.make_train_step(case.torch_loss(), case.tcfg, ttx, compute_dtype=tdt)(
-            ttrain.init_train_state(tconv.from_jax_params(params, case.tcfg, device="cpu"),
-                                    ttx), to_torch(b))
-        tl = ttrain.make_eval_step(case.torch_loss(), case.tcfg, compute_dtype=tdt)(
-            tconv.from_jax_params(params, case.tcfg, device="cpu"), to_torch(b))["logits"]
-        out["jax", name] = ({k: float(v) for k, v in js.items()},
-                            np.asarray(jl.astype(jnp.float32)))
-        out["port", name] = ({k: float(v) for k, v in ts.items()}, tl.float().numpy())
-    return out
 
 
 @pytest.mark.parametrize("seed", BF16_SEEDS)
@@ -448,7 +387,7 @@ def test_bf16_vool_train_step_matches_jax(seed):
       ran f32 whatever the compute dtype fails the first and the last."""
     case = CASES["vool/semantic_abstraction"]
     b = batch(case, np.random.RandomState(seed))
-    runs = _bf16_and_f32_runs(case, case.jax_params(), b)
+    runs = bf16_and_f32_runs(case, case.jax_params(), b)
     (port, plog), (jax_, jlog) = runs["port", "bf16"], runs["jax", "bf16"]
     (port32, plog32), (jax32, jlog32) = runs["port", "f32"], runs["jax", "f32"]
     for k, rtol in (("loss", 1e-3), ("grad_norm", 2e-3)):
@@ -495,8 +434,8 @@ def bf16_control_runs(seed):
     port_decoder = tnets.implicit_decoder
     with mock.patch.object(tnets, "implicit_decoder",
                            lambda dec, vol, *a, **kw: port_decoder(dec, jax_vol, *a, **kw)), \
-            mock.patch.object(tdec, "grid_sample_3d", _jax_rounding_sampler), \
-            mock.patch.object(tdec, "linear", _jax_rounding_linear):
+            mock.patch.object(tdec, "grid_sample_3d", jax_rounding_sampler), \
+            mock.patch.object(tdec, "linear", jax_rounding_linear):
         out["port, JAX's roundings"] = run()
     return out
 

@@ -4,7 +4,10 @@ the port's parity tests (``tests/test_torch_{vool,metrics,checkpoint}.py``).
 Every case is keyed like ``FORWARD_LOSS`` ("task/approach"), with two
 variants of SemAbsVOOL: its pointer on the ``additive`` method (the one
 with a parameter) and at the paper's 16 UNet channels (JAX's blocked fast
-path held off, as in ``tests/test_torch_ovssc.py``).
+path held off, as in ``tests/test_torch_ovssc.py``). Beside them, the
+bf16 helpers of the OVSSC and VOOL bf16 tests: the JAX package's sampler
+and linear roundings written in torch, and one step of each package at
+bf16 and f32.
 """
 import dataclasses
 
@@ -15,6 +18,7 @@ import torch
 
 from semantic_abstraction_tpu.models import nets as jnets
 from semantic_abstraction_tpu.runtime import train as jtrain
+from semantic_abstraction_tpu_torch.models import convert as tconv
 from semantic_abstraction_tpu_torch.models import nets as tnets
 from semantic_abstraction_tpu_torch.runtime import train as ttrain
 
@@ -23,6 +27,7 @@ TINY = dict(voxel_shape=(16, 16, 16), unet_num_channels=8, unet_f_maps=4,
 C16 = dict(TINY, unet_num_channels=16, unet_num_groups=4, unet_num_levels=2)
 EMBED = 16  # CLIP feature width of the semantic-aware nets
 PD = 8      # pointing dim of the VOOL nets
+OPT = dict(lr=1e-2, num_warmup_steps=1, num_training_steps=50)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,3 +198,71 @@ def torch_forward(case, model, b):
     fn = getattr(tnets, FORWARDS[case.key])
     with torch.no_grad():
         return fn(model, case.tcfg, *(torch.as_tensor(x) for x in _forward_inputs(case, b)))
+
+
+# ---------------------------------------------------------------------------
+# bf16: the JAX package's roundings, and one step of each package
+# ---------------------------------------------------------------------------
+
+
+def corners(vol, coords):
+    """The 8 corner values (B, N, 8, C) of each sample of a (B, C, D, H, W)
+    volume and their f32 trilinear weights (B, N, 8), corners in (dz, dy,
+    dx) order, by the JAX sampler's index math (border clamp,
+    align_corners=True, coords[..., 0] indexing W)."""
+    b, c, d, h, w = vol.shape
+    top = torch.tensor([w - 1, h - 1, d - 1], dtype=torch.float32)
+    idx = torch.minimum(((coords + 1.0) * 0.5 * top).clamp_min(0.0), top)
+    lo = torch.minimum(torch.floor(idx), top)
+    frac = idx - lo
+    lo = lo.long()
+    hi = torch.minimum(lo + 1, top.long())
+    flat = vol.reshape(b, c, -1)
+    vals, weights = [], []
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                x, y, z = ((hi if up else lo)[..., i] for i, up in enumerate((dx, dy, dz)))
+                lin = ((z * h + y) * w + x)[:, None].expand(b, c, -1)
+                vals.append(torch.gather(flat, 2, lin).transpose(1, 2))
+                fx, fy, fz = (f if up else 1 - f
+                              for f, up in zip(frac.unbind(-1), (dx, dy, dz)))
+                weights.append(fz * fy * fx)
+    return torch.stack(vals, 2), torch.stack(weights, -1)
+
+
+def jax_rounding_sampler(vol, coords):
+    """The JAX package's bf16 sampler rounding: the weights rounded to the
+    volume's dtype, products and sum in f32, one rounding."""
+    vals, weights = corners(vol, coords.float())
+    return (vals.float() * weights.to(vol.dtype).float()[..., None]).sum(2).to(vol.dtype)
+
+
+def jax_rounding_linear(p, x):
+    """The JAX package's ``_linear``: x @ w rounded, then + b rounded."""
+    return torch.matmul(x, p.weight.to(x.dtype).t()) + p.bias.to(x.dtype)
+
+
+def bf16_and_f32_runs(case, params, b):
+    """One train step and the eval step of each package at bf16 and at f32
+    from the same weights -> {(package, dtype): (stats as floats, logits)}."""
+    out = {}
+    for name, jdt, tdt in (("bf16", jnp.bfloat16, torch.bfloat16),
+                           ("f32", jnp.float32, torch.float32)):
+        jtx = jtrain.make_optimizer(**OPT)
+        _, js = jtrain.make_train_step(case.jax_loss(), case.jcfg, jtx, compute_dtype=jdt,
+                                       donate=False)(
+            jtrain.init_train_state(jax.tree_util.tree_map(jnp.asarray, params), jtx),
+            to_jax(b))
+        jl = jtrain.make_eval_step(case.jax_loss(), case.jcfg, compute_dtype=jdt)(
+            jax.tree_util.tree_map(jnp.asarray, params), to_jax(b))["logits"]
+        ttx = ttrain.make_optimizer(**OPT)
+        _, ts = ttrain.make_train_step(case.torch_loss(), case.tcfg, ttx, compute_dtype=tdt)(
+            ttrain.init_train_state(tconv.from_jax_params(params, case.tcfg, device="cpu"),
+                                    ttx), to_torch(b))
+        tl = ttrain.make_eval_step(case.torch_loss(), case.tcfg, compute_dtype=tdt)(
+            tconv.from_jax_params(params, case.tcfg, device="cpu"), to_torch(b))["logits"]
+        out["jax", name] = ({k: float(v) for k, v in js.items()},
+                            np.asarray(jl.astype(jnp.float32)))
+        out["port", name] = ({k: float(v) for k, v in ts.items()}, tl.float().numpy())
+    return out
