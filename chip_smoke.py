@@ -54,7 +54,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    from numpy seed 0; bf16 against f32, one warm-up step, timed steps, an
    eval step and the 25-cutoff point and 32^3 voxel metrics over its
    logits;
-11. profile one more VOOL train step, likewise.
+11. profile one more VOOL train step, likewise;
+12. the loop users run, for OVSSC and for VOOL at full width, through the
+   port's ``runtime.experiment`` (``build_setup``, ``train``,
+   ``eval_batches``): one epoch of 10 loader-fed steps (4 loader threads,
+   the native loader kernels, pinned non-blocking copies) over in-memory
+   full-width scenes (``MemoryScenes``: the card's machine has no h5py),
+   then 2 eval batches at the 25 detailed cutoffs, then a ``latest.ckpt``
+   round trip bit for bit; loader-fed steps/s beside the device-resident
+   rate of phase 7 or 10, the share of the epoch spent waiting on the
+   loader, H2D ms a batch, peak memory, and the moments launches a step
+   (33 forward and 33 backward).
 
 Each path's kernel launch counts are set to 0 just before its timed run
 and read just after. Prints a ``{"kernels": [...]}`` line, the card's name
@@ -63,6 +73,7 @@ and power limit, and as the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -816,6 +827,267 @@ def phase_vool(card: str):
     return state, step, batch, launches, sum(times) / len(times)
 
 
+# the full-width corpus of scripts/bench_train_e2e.py: 480x640 frames,
+# 500,000-point full clouds, 240x320 relevancy maps; 80,000 input and
+# 400,000 query points a sample, 4 patches or descriptions
+SCENE = dict(h=480, w=640, rel_h=240, rel_w=320, full_pts=500_000,
+             num_input=80_000, num_output=400_000, parts=4)
+LOOP_STEPS = 10
+LOOP_WORKERS = 4
+
+
+class MemoryScenes:
+    """Scenes held in memory, served as the port's dataset items.
+
+    The card's machine has no h5py, so the scene files cannot be read
+    there. Each of ``n_scenes`` scenes (depth, rgb, a full point cloud with
+    object ids, relevancy maps and their mean, CLIP label features) is drawn
+    once from ``np.random.RandomState(seed + i)``; ``__getitem__`` then runs
+    what ``SceneCompletionDataset`` / ``ObjectLocalizationDataset`` run after
+    the HDF5 read, with the port's own transforms and native kernels, from a
+    per-(seed, epoch, index) RandomState: back-projection, the relevancy
+    resize and mean subtraction, the domain-randomization transform, the
+    80,000-of-307,200 input subsample, the balanced 400,000-of-500,000
+    query subsample of each patch or description, and the frustum masks.
+    Items have the datasets' keys in their order, dtypes and ranks
+    (``tests/test_torch_data.py`` holds them to a real item), and ``cfg`` is
+    the ``DataConfig`` of these sizes, as on a dataset."""
+
+    BOUNDS = np.array([[-1.0, -1.0, -0.1], [1.0, 1.0, 1.9]], np.float32)
+    RELATIONS = ("in", "behind", "in front of", "on the left of", "on the right of", "on")
+    CLASSES = ("chair", "table", "sofa", "lamp", "bed", "mug", "plant", "tv")
+
+    def __init__(self, task: str, n_scenes: int = 4, length: int = 11, seed: int = 0,
+                 **sizes):
+        from semantic_abstraction_tpu_torch.data import DataConfig
+
+        self.task, self.length, self.seed, self.epoch = task, length, seed, 0
+        self.size = {**SCENE, **sizes}
+        z = self.size
+        self.cfg = DataConfig(num_input_pts=z["num_input"], num_output_pts=z["num_output"],
+                              num_patches=z["parts"], num_descs=z["parts"], seed=seed)
+        self.scenes = []
+        for i in range(n_scenes):
+            rs = np.random.RandomState(seed + i)
+            h, w, n, p = z["h"], z["w"], z["full_pts"], z["parts"]
+            maps = 3 * p if task == "vool" else p  # target, reference, description
+            self.scenes.append({
+                "depth": rs.uniform(0.5, 1.8, (h, w)).astype(np.float32),
+                "rgb": rs.randint(0, 255, (h, w, 3), np.uint8),
+                "cam_intr": np.array([[w / 2, 0, w / 2], [0, w / 2, h / 2], [0, 0, 1]]),
+                "cam_pose": np.eye(4),
+                "full_xyz": rs.uniform(-0.9, 1.8, (n, 3)).astype(np.float32),
+                "full_objid": rs.randint(0, len(self.CLASSES) + 3, n).astype(np.int64),
+                "saliencies": rs.randn(maps, z["rel_h"], z["rel_w"]).astype(np.float32) * 0.01,
+                "mean": rs.randn(z["rel_h"], z["rel_w"]).astype(np.float32) * 0.01,
+                "label_features": rs.randn(p, 512).astype(np.float32),
+                "targets": 3 + rs.choice(len(self.CLASSES), p, replace=False),
+                "references": 3 + rs.choice(len(self.CLASSES), p, replace=False),
+                "relations": rs.randint(0, len(self.RELATIONS), p),
+            })
+
+    def __len__(self):
+        return self.length
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def _relevancy(self, scene, rows):
+        from semantic_abstraction_tpu_torch.data.transforms import resize_bilinear_np
+
+        z = self.size
+        maps = resize_bilinear_np(scene["saliencies"][rows] - scene["mean"], (z["h"], z["w"]))
+        return (maps.reshape(len(rows), -1, 1) * 50.0).astype(np.float32)
+
+    def __getitem__(self, idx: int) -> dict:
+        from semantic_abstraction_tpu_torch.data.transforms import (
+            balanced_subsample_probabilities, check_pts_in_frustum_np,
+            depth_to_pointcloud_np, random_domain_transform, transform_filter_subsample)
+
+        z, sc = self.size, self.scenes[idx % len(self.scenes)]
+        p, bounds = z["parts"], self.BOUNDS
+        rng = np.random.RandomState((self.seed * 1_000_003 + self.epoch * 10_007 + idx)
+                                    % (2**31))
+        names = [self.CLASSES[i - 3] for i in sc["targets"]]
+        rgb = sc["rgb"].astype(np.float32)
+        input_xyz = depth_to_pointcloud_np(sc["depth"], sc["cam_intr"], sc["cam_pose"])
+        labels = (sc["full_objid"][None] == sc["targets"][:, None]).astype(np.float32)
+        oob = np.zeros(len(sc["full_objid"]), np.float32)
+        if self.task == "ovssc":
+            side = {"input_feature_pts": self._relevancy(sc, np.arange(p))}
+            transform = random_domain_transform(rng, bounds, 0.05, 0.3, 0.1)
+        else:
+            rel = [self._relevancy(sc, np.arange(p) + k * p) for k in range(3)]
+            side = {"input_target_saliency_pts": rel[0],
+                    "input_reference_saliency_pts": rel[1],
+                    "input_description_saliency_pts": rel[2],
+                    "input_rgb_pts": np.repeat((rgb / 255.0).reshape(1, -1, 3), p, axis=0)}
+            transform = random_domain_transform(rng, bounds, 0.1, 0.3, 0.1)
+        common = dict(scene_bounds=bounds, always_replace_pts=False, rng=rng)
+        n_in = len(input_xyz)
+        inp = transform_filter_subsample(
+            xyz_pts=input_xyz, num_subsample_pts=z["num_input"],
+            subsample_probabilities=np.full(n_in, 1.0 / n_in), transform_matrix=transform,
+            **side, **common)
+        xyzs, labs, oobs = [], [], []
+        for i in range(p):
+            o = transform_filter_subsample(
+                xyz_pts=sc["full_xyz"], num_subsample_pts=z["num_output"],
+                subsample_probabilities=balanced_subsample_probabilities(labels[i]),
+                transform_matrix=transform, out_of_bounds_pts=oob,
+                output_label_pts=labels[i][None], **common)
+            xyzs.append(o["xyz_pts"])
+            labs.append(o["output_label_pts"][0])
+            oobs.append(o["out_of_bounds_pts"])
+        frustum = np.stack([~check_pts_in_frustum_np(x, sc["depth"].shape, sc["cam_pose"],
+                                                     sc["cam_intr"]) for x in xyzs])
+        out_xyz, out_lab, out_oob = np.stack(xyzs), np.stack(labs), np.stack(oobs)
+        scene_id = f"FloorPlan{idx % len(self.scenes) + 1}_physics_0"
+        if self.task == "ovssc":
+            return {
+                "rgb": rgb, "output_xyz_pts": out_xyz,
+                "input_feature_pts": inp["input_feature_pts"],
+                "semantic_class_features": sc["label_features"],
+                "output_label_pts": out_lab, "out_of_bounds_pts": out_oob,
+                "patch_labels": names, "scene_id": scene_id,
+                "input_xyz_pts": inp["xyz_pts"], "tsdf_vol": np.ones(1, np.float32),
+                "out_of_frustum_pts_mask": frustum, "padding_mask": np.zeros(p, bool),
+            }
+        relations = [self.RELATIONS[r] for r in sc["relations"]]
+        return {
+            "rgb": rgb / 255.0, "input_xyz_pts": inp["xyz_pts"], "output_xyz_pts": out_xyz,
+            "out_of_bounds_pts": out_oob, "spatial_relation_name": relations,
+            **{k: inp[k] for k in side}, "output_label_pts": out_lab,
+            "scene_id": scene_id, "target_obj_name": names,
+            "reference_obj_name": [self.CLASSES[i - 3] for i in sc["references"]],
+            "tsdf_vol": np.ones(1, np.float32), "out_of_frustum_pts_mask": frustum,
+            "padding_mask": np.zeros(p, bool),
+            "spatial_relation_id": sc["relations"].astype(np.int32),
+        }
+
+
+def phase_loop(card: str, task: str, resident_steps_per_s: float):
+    """The loop users run, at full width, through the port's own
+    ``runtime.experiment``: ``build_setup`` (the net of ``--approach
+    semantic_abstraction`` at the CLI's defaults, bf16, LAMB on the
+    schedule) over a ``MemoryScenes`` train split, then ``train`` for one
+    epoch of LOOP_STEPS steps with LOOP_WORKERS loader threads (no eval
+    split inside it), then the eval half through ``eval_batches`` (loader,
+    ``device_batch``, the eval step, ``point_and_voxel_stats`` at the 25
+    detailed cutoffs and 32^3 and 64^3 voxels) over 2 batches, then a
+    ``latest.ckpt`` round trip into a fresh state, bit for bit.
+    ``resident_steps_per_s`` is the device-resident step rate of the same
+    net from its earlier phase. Returns the moments launches of the loop."""
+    import tempfile
+
+    import torch
+
+    from semantic_abstraction_tpu_torch import native
+    from semantic_abstraction_tpu_torch.cli import common
+    from semantic_abstraction_tpu_torch.data import DataLoader, ShardedSampler
+    from semantic_abstraction_tpu_torch.models import init_net
+    from semantic_abstraction_tpu_torch.ops.channel_moments import (
+        channel_moments, channel_moments_backward)
+    from semantic_abstraction_tpu_torch.runtime import experiment as exp
+    from semantic_abstraction_tpu_torch.runtime import (
+        eval_cutoffs_for, load_checkpoint, make_eval_step, save_checkpoint)
+    from semantic_abstraction_tpu_torch.runtime.train import init_train_state
+
+    if not native.available():
+        raise AssertionError("the native loader kernels did not build on the card's machine")
+    args = common.config_parser().parse_args([
+        "--file_path", "(in memory)", "--epochs", "1", "--eval_freq", "1000",
+        "--save_freq", "1000", "--num_workers", str(LOOP_WORKERS), "--seed", "0"])
+    t0 = time.perf_counter()
+    train_ds = MemoryScenes(task, length=LOOP_STEPS + 1)
+    setup = exp.build_setup(args, task, "semantic_abstraction", {"train": train_ds})
+    device = setup["device"]
+    torch.cuda.synchronize()
+    print(f"[loop-{task}] scenes and net built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    timings = []
+    with tempfile.TemporaryDirectory() as log_dir:
+        torch.cuda.reset_peak_memory_stats()
+        channel_moments.launches = channel_moments_backward.launches = 0
+        state = exp.train(args, setup, log_dir=log_dir, max_steps_per_epoch=LOOP_STEPS,
+                          timings=timings)
+        launches = {"channel_moments": channel_moments.launches,
+                    "channel_moments_backward": channel_moments_backward.launches}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        (t,) = timings
+        if t["steps"] != LOOP_STEPS or not np.isfinite(t["loss"]):
+            raise AssertionError(f"loop-{task}: train epoch {t}")
+        per_step = {k: n / t["steps"] for k, n in launches.items()}
+        if per_step != {"channel_moments": 33.0, "channel_moments_backward": 33.0}:
+            raise AssertionError(f"loop-{task}: moments launches a step {per_step}")
+
+        # H2D: device_batch of one loader batch, pinned and non-blocking,
+        # to the synchronize; the mean of 5 after one warm-up
+        batch = next(iter(DataLoader(train_ds, batch_size=1, num_workers=0, shuffle=False)))
+        nbytes = sum(v.nbytes for k, v in batch.items() if k in exp.DEVICE_KEYS[task])
+        h2d = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            db = exp.device_batch(batch, task, device)
+            torch.cuda.synchronize()
+            h2d.append(time.perf_counter() - t1)
+        h2d_ms = 1e3 * sum(h2d[1:]) / 5
+        del db
+
+        # the eval half: 2 batches at the 25 detailed cutoffs
+        eval_step = make_eval_step(setup["forward_loss"], setup["cfg"],
+                                   compute_dtype=torch.bfloat16)
+        cutoffs = eval_cutoffs_for(task, detailed=True)
+        loader = DataLoader(MemoryScenes(task, length=2, seed=100), batch_size=1,
+                            num_workers=2,
+                            sampler=ShardedSampler(2, shuffle=False, seed=args.seed))
+        t1 = time.perf_counter()
+        outs = list(exp.eval_batches(state, eval_step, loader, task,
+                                     train_ds.cfg.scene_bounds, cutoffs,
+                                     ((32, 32, 32), (64, 64, 64)), max_batches=2))
+        eval_s = time.perf_counter() - t1
+        losses = [x for o in outs for x in o["loss"]]
+        # mean 32^3 voxel IoU by cutoff over both batches' 4 rows
+        ious = np.nanmean(np.stack([o["stats"]["voxel32x32x32_iou"] for o in outs]),
+                          axis=(0, 2, 3))
+        if len(outs) != 2 or not np.isfinite(losses).all():
+            raise AssertionError(f"loop-{task} eval: {len(outs)} batches, losses {losses}")
+        for o in outs:
+            for k, v in o["stats"].items():
+                if v.shape != (25, 1, 4) or not np.isfinite(v[~np.isnan(v)]).all() \
+                        or np.isnan(v).all():
+                    raise AssertionError(f"loop-{task} eval stat {k}: {v.shape}")
+
+        # checkpoint round trip into a fresh state (another seed's weights)
+        path = os.path.join(log_dir, "latest.ckpt")
+        save_checkpoint(path, state, 1)
+        fresh = init_train_state(init_net(1, setup["cfg"], device), setup["tx"])
+        fresh, epoch, _ = load_checkpoint(path, fresh)
+        if epoch != 1 or fresh.step != state.step:
+            raise AssertionError(f"loop-{task} checkpoint: epoch {epoch} step {fresh.step}")
+        for (n, a), b in zip(state.model.named_parameters(), fresh.model.parameters()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"loop-{task} checkpoint: parameter {n} differs")
+        for a, b in zip(state.model.parameters(), fresh.model.parameters()):
+            sa, sb = state.optimizer.state[a], fresh.optimizer.state[b]
+            if sa["step"] != sb["step"] or not all(
+                    torch.equal(sa[k], sb[k]) for k in ("exp_avg", "exp_avg_sq")):
+                raise AssertionError(f"loop-{task} checkpoint: LAMB state differs")
+    print(f"[loop-{task}] {t['steps']} loader-fed steps in {t['wall_s']:.3f} s = "
+          f"{t['steps'] / t['wall_s']} steps/s (device-resident {resident_steps_per_s} "
+          f"steps/s in its phase); waited on the loader {t['loader_wait_s']:.3f} s = "
+          f"{100 * t['loader_wait_s'] / t['wall_s']:.1f}% of the epoch; device_batch "
+          f"{t['device_batch_s']:.3f} s on the host clock; H2D {h2d_ms:.2f} ms a batch "
+          f"({nbytes / 1e6:.1f} MB, {nbytes / h2d_ms / 1e6:.2f} GB/s); peak mem GB "
+          f"{peak:.2f}; moments launches a step {per_step}; loss {t['loss']}; eval "
+          f"{len(outs)} batches in {eval_s:.3f} s, loss {losses}, mean 32^3 voxel IoU by "
+          f"cutoff {[round(v, 4) for v in ious.tolist()]}; "
+          f"checkpoint round trip bit-equal; native.available() "
+          f"{native.available()}; {LOOP_WORKERS} loader threads card={card}", flush=True)
+    return launches, t["steps"]
+
+
 def phase_main(card: str):
     """The image path at full width through the CLI's entry points."""
     import torch
@@ -1029,6 +1301,10 @@ def main() -> int:
     state, step, batch, vool_launches, vool_s = phase_vool(card)
     phase_profile(card, "vool train step", lambda: step(state, batch), vool_s,
                   ("moments_fwd", "moments_bwd"), top=16, nodes=("_ChannelMomentsBackward",))
+    del state, step, batch
+    torch.cuda.empty_cache()
+    loop = {task: phase_loop(card, task, 1.0 / s)
+            for task, s in (("ovssc", step_s), ("vool", vool_s))}
 
     # the kernels line. fused_mha: bf16 at the ViT-B/32 path's dominant
     # chunk (48 rows, T = 50), errors over every bf16 shape of the two
@@ -1097,6 +1373,14 @@ def main() -> int:
             **timing(bmain),
             "vool": {"launches": vool_launches["channel_moments_backward"],
                      **timing(bvool)},
+        },
+        # the loop of phase 12: the moments launches of both tasks' loader-fed
+        # train epochs, the eval half not counted
+        "loop": {
+            "launches": sum(n["channel_moments"] for n, _ in loop.values()),
+            "backward_launches": sum(n["channel_moments_backward"]
+                                     for n, _ in loop.values()),
+            "steps": {task: n for task, (_, n) in loop.items()},
         },
     }]
     print(json.dumps({"kernels": kernels}))

@@ -52,8 +52,9 @@ from .unet3d import (
     residual_unet3d,
 )
 
-# Fixed relation vocabulary (reference net.py:490-503 ParameterDict keys); a
-# copy of the JAX package's, for the VOOL nets and the data pipeline.
+# Fixed relation vocabulary (reference net.py:490-503 ParameterDict keys) and
+# its ids; a copy of the JAX package's, for the VOOL nets and the data
+# pipeline.
 RELATIONS = (
     "in",
     "behind",
@@ -63,6 +64,7 @@ RELATIONS = (
     "on",
     "[pad]",
 )
+RELATION_TO_ID = {r: i for i, r in enumerate(RELATIONS)}
 
 # QUIRK (reference net.py:186-199): VirtualGrid.scatter_points ignores its
 # reduce_method argument and reads the grid's own field, which SemAbs3D

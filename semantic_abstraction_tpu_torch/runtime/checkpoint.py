@@ -15,6 +15,10 @@ embeddings by name), plus the port's ``step`` counter and the caller's
 - ``load_net_checkpoint``: a reference ``.pth`` of any of the five nets
   (``net`` entry, DDP prefix or not) -> the port's net and its epoch,
   through ``models.convert.NET_CONVERTERS``.
+- ``resume_checkpoint``: ``--load`` of the train and eval CLIs, into a
+  built train state, by the JAX package's rule (its ``load_net_checkpoint``):
+  a ``.pth``/``.pt`` restores the net and the epoch, anything else is a
+  ``save_checkpoint`` file and restores all of it.
 
 Both loaders read with ``torch.load(weights_only=True)``, which rebuilds
 tensors and plain containers only and runs no other code of the file.
@@ -60,11 +64,33 @@ def load_checkpoint(path: str, state: TrainState):
     return state, int(ckpt["epochs"]), ckpt.get("extra", {})
 
 
+def _read_reference(path: str):
+    """A reference ``.pth`` -> (net state dict, epoch): a training
+    checkpoint's ``net`` and ``epochs``, or a bare state dict and 0. The
+    optimizer state is not read."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ckpt, dict) and "net" in ckpt:
+        return ckpt["net"], int(ckpt.get("epochs", 0))
+    return ckpt, 0
+
+
 def load_net_checkpoint(path: str, task: str, approach: str, cfg=None, device=None):
     """A reference training checkpoint (``.pth``) -> (net, epoch): the net
     of (task, approach) at ``cfg`` (the reference's defaults unless given)
-    on ``device`` (cuda unless asked). The optimizer state is not read."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    full = isinstance(ckpt, dict) and "net" in ckpt
-    model = NET_CONVERTERS[(task, approach)](ckpt["net"] if full else ckpt, cfg, device)
-    return model, int(ckpt.get("epochs", 0)) if full else 0
+    on ``device`` (cuda unless asked)."""
+    sd, epoch = _read_reference(path)
+    return NET_CONVERTERS[(task, approach)](sd, cfg, device), epoch
+
+
+def resume_checkpoint(path: str, state: TrainState):
+    """Restore ``path`` into ``state`` -> (state, start epoch). A reference
+    ``.pth``/``.pt`` restores the net and the epoch (the optimizer starts
+    fresh: the reference's torch Lamb state does not map onto the port's);
+    any other file is a ``save_checkpoint`` one and restores the net, the
+    LAMB moments and step counts, the step and the epoch, bit for bit."""
+    if path.endswith((".pth", ".pt")):
+        sd, epoch = _read_reference(path)
+        load_reference_state_dict(state.model, sd)
+        return state, epoch
+    state, epoch, _ = load_checkpoint(path, state)
+    return state, epoch

@@ -29,7 +29,10 @@ def test_port_modules_are_found():
                  "models.params", "models.unet3d", "models.decoder", "models.nets",
                  "models.convert", "models.lamb", "runtime.losses",
                  "runtime.schedule", "runtime.train", "runtime.metrics",
-                 "runtime.checkpoint"):
+                 "runtime.checkpoint", "runtime.experiment", "native", "data",
+                 "data.transforms", "data.hdf5", "data.datasets", "data.loader",
+                 "cli.common", "cli.train_ovssc", "cli.train_vool", "cli.eval",
+                 "cli.summarize"):
         assert f"semantic_abstraction_tpu_torch.{name}" in mods
 
 
@@ -72,3 +75,51 @@ def test_importing_the_port_loads_no_jax():
                          text=True, cwd=REPO, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
+
+
+_NO_H5PY_NO_PANDAS = """
+import sys
+
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("h5py", "pandas"):
+            raise ImportError(f"{name} is blocked")
+
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+
+from semantic_abstraction_tpu_torch.data import DataLoader, collate
+from semantic_abstraction_tpu_torch.runtime import experiment
+
+
+class Items:
+    def __len__(self):
+        return 5
+
+    def __getitem__(self, i):
+        return {"x": np.full((2, 3), i, np.float32), "name": f"s{i}"}
+
+    def set_epoch(self, epoch):
+        pass
+
+
+batches = list(DataLoader(Items(), batch_size=2, num_workers=2, shuffle=False))
+assert [b["name"] for b in batches] == [["s0", "s1"], ["s2", "s3"], ["s4"]]
+assert batches[0]["x"].shape == (2, 2, 3)
+assert collate([Items()[0]])["x"].shape == (1, 2, 3)
+assert "h5py" not in sys.modules and "pandas" not in sys.modules
+print("ok", experiment.LOG_FLUSH)
+"""
+
+
+def test_data_and_experiment_import_without_h5py_and_pandas():
+    """The card's machine has neither: the input pipeline and the loop import
+    and a loader batches in-memory items there."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _NO_H5PY_NO_PANDAS], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
