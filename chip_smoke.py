@@ -15,7 +15,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    at the ViT-B/32 and ViT-L/14 shapes of the multi-tail gradcam;
    ``channel_moments`` and its backward kernel at the 11 (C, S) shapes of
    the full-size UNet's GroupNorms, at B = 4 (OVSSC) and B = 8 (VOOL) (the
-   backward bit for bit). Times are device times: the calls captured in a
+   backward bit for bit), and the forward at B = 1 (the inference paths).
+   Times are device times: the calls captured in a
    CUDA graph and replayed, so that the host's launch rate does not set
    them;
 3. run small ``ClipSaliency`` pipelines on the card and on the CPU with the
@@ -64,7 +65,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    round trip bit for bit; loader-fed steps/s beside the device-resident
    rate of phase 7 or 10, the share of the epoch spent waiting on the
    loader, H2D ms a batch, peak memory, and the moments launches a step
-   (33 forward and 33 backward).
+   (33 forward and 33 backward);
+13. the ``generate_relevancy dataset`` writer without h5py: 3 in-memory
+   480x640 scenes whose labels (~40 each) come from ``_scene_labels`` over
+   a THOR-like object list and descriptions, ViT-B/32 "ours" bf16, the maps
+   cut to the 240x320 store on the card, through ``pipelined`` (pinned
+   copies on a side stream, one scene deep) into an in-memory sink: seconds
+   a scene, maps/s, the copies' bytes, ms and overlap, K1 launches a scene,
+   peak memory; the sink's maps finite at the store shape, its features
+   unit-norm with the mean row, and its last scene equal to a synchronous
+   extraction;
+14. TSDF fusion of a seeded 480x640 RGB-D frame at 240^3 on the card
+   against the CPU (tsdf and weight within 1e-5, any other voxel at a
+   rounding tie), and the host seconds of a dataset item's 128^3 ``tsdf``;
+15. ``visualize ovssc-inference`` and ``vool-inference`` at full width on
+   that frame through the CLI's commands (``SemAbs3DConfig()`` and
+   ``SemAbsVOOLConfig()`` at random weights, bf16, 80,000 input points,
+   the 240^3 sweep; 4 classes, 2 descriptions): the seconds of each stage
+   (CLIP weights, relevancy, UNet, dense sweep, read-back, TSDF and
+   carving, marching and export on the host), K1 launches, K3 launches (33
+   a class, 66 a description) and peak memory.
 
 Each path's kernel launch counts are set to 0 just before its timed run
 and read just after. Prints a ``{"kernels": [...]}`` line, the card's name
@@ -76,6 +96,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -106,6 +127,9 @@ UNET_GN_SHAPES = [(16, 128**3), (16, 64**3), (32, 64**3), (32, 32**3),
                   (64, 32**3), (64, 16**3), (128, 16**3), (128, 8**3),
                   (256, 8**3), (256, 4**3), (512, 4**3)]
 MOMENTS_SHAPES = [(b, c, s) for b in (4, 8) for c, s in UNET_GN_SHAPES]
+# and at B = 1, forward only: the inference paths' UNet under no_grad (one
+# volume a class, or a description's target or reference)
+MOMENTS_INFERENCE_SHAPES = [(1, c, s) for c, s in UNET_GN_SHAPES]
 # the small nets of the card-vs-CPU phases
 SMALL_UNET = dict(voxel_shape=(16, 16, 16), unet_num_channels=8, unet_f_maps=4,
                   unet_num_groups=2, unet_num_levels=3, pts_feat_extractor_hidden_dim=16)
@@ -327,7 +351,7 @@ def phase_moments(card: str):
     rows, brows = [], []
     g = torch.Generator(device="cuda").manual_seed(0)
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for b, c, s in MOMENTS_SHAPES:
+        for b, c, s in MOMENTS_SHAPES + MOMENTS_INFERENCE_SHAPES:
             x = (torch.randn(b, c, s, device="cuda", generator=g) * 2 + 0.5).to(dtype)
             s1, s2 = channel_moments(x)
             r1, r2 = channel_moments_reference(x)
@@ -350,6 +374,9 @@ def phase_moments(card: str):
             rows.append(row)
             print(f"[kernel] channel_moments {json.dumps(row)} tol rel 1e-5 "
                   f"card={card}", flush=True)
+            if b == 1:  # the inference rows run forward only
+                del x, s1, s2, r1, r2
+                continue
             g1 = torch.randn(b, c, device="cuda", generator=g)
             g2 = torch.randn(b, c, device="cuda", generator=g) / s
             gx = channel_moments_backward(x, g1, g2)
@@ -978,8 +1005,6 @@ def phase_loop(card: str, task: str, resident_steps_per_s: float):
     ``latest.ckpt`` round trip into a fresh state, bit for bit.
     ``resident_steps_per_s`` is the device-resident step rate of the same
     net from its earlier phase. Returns the moments launches of the loop."""
-    import tempfile
-
     import torch
 
     from semantic_abstraction_tpu_torch import native
@@ -1086,6 +1111,275 @@ def phase_loop(card: str, task: str, resident_steps_per_s: float):
           f"checkpoint round trip bit-equal; native.available() "
           f"{native.available()}; {LOOP_WORKERS} loader threads card={card}", flush=True)
     return launches, t["steps"]
+
+
+# the writer's in-memory corpus: THOR-like object lists (20 names, ids from
+# 3 as the THOR files number them) and 6 descriptions a scene
+THOR_OBJECTS = ("chair", "table", "sofa", "television", "lamp", "bed", "pillow", "plant",
+                "book", "mug", "laptop", "cabinet", "drawer", "shelf", "painting",
+                "window", "door", "fridge", "armchair", "desk")
+WRITER_SCENES = 3
+WRITER_STORE = (240, 320)
+# the inference scene: classes (OVSSC) and descriptions (VOOL)
+INFERENCE_CLASSES = ["chair", "table", "sofa", "lamp"]
+INFERENCE_DESCRIPTIONS = [("mug", "on", "table"), ("lamp", "behind", "sofa")]
+INFERENCE_GRID = 240
+# the random net's outputs are noise at the voxel scale (most within
+# +-0.1), so its argmax over the 4 classes changes every voxel or two: with
+# no point empty, the meshes would run through the whole carved region.
+# The cutoff empties the points whose best output is below it, which
+# leaves small blobs to mesh; phase 15 prints how many points it kept
+INFERENCE_CUTOFF = 0.08
+
+
+def writer_items(n: int, seed: int = 0):
+    """``n`` in-memory scenes (index, labels, 480x640 rgb): each scene's
+    labels come from the port's ``_scene_labels`` over a THOR-like
+    ``objid_to_class`` (the placeholders, 20 bracketed names) and 6
+    descriptions, as the writer reads them from a scene file (no ground
+    truth, so every class)."""
+    from semantic_abstraction_tpu_torch.cli import generate_relevancy as cli
+    from semantic_abstraction_tpu_torch.models import RELATIONS
+
+    items = []
+    for si in range(n):
+        rs = np.random.RandomState(seed + si)
+        names = ["empty", "out of bounds", "unlabelled"] + [
+            f"{c}[{i + 3}]" for i, c in enumerate(THOR_OBJECTS)]
+        descs = {"target_obj_name": rs.choice(THOR_OBJECTS, 6),
+                 "reference_obj_name": rs.choice(THOR_OBJECTS, 6),
+                 "spatial_relation_name": rs.choice(RELATIONS[:6], 6)}
+        f = {"data": {"objid_to_class": np.array(names, "S64"),
+                      "descriptions": {k: np.array(v, "S64") for k, v in descs.items()}}}
+        items.append((si, cli._scene_labels(f),
+                      rs.randint(0, 255, (480, 640, 3), np.uint8)))
+    return items
+
+
+def phase_writer(card: str):
+    """The ``generate_relevancy dataset`` writer at full width without
+    h5py: ``extract_scene`` (ViT-B/32, random weights, bf16, "ours", the
+    downsample to the 240x320 store on the card) over WRITER_SCENES
+    in-memory 480x640 scenes through ``pipelined``, one scene deep, into an
+    in-memory sink that forms the rows the HDF5 writer stores
+    (``scene_rows``). A warm-up extraction of the last scene, synchronous,
+    is the reference for the sink's copy of it (the pipelined copy must
+    equal it within 2 float16 ulp of the largest map value: the
+    overlap-add canvas may sum in another order from run to run)."""
+    import torch
+
+    from semantic_abstraction_tpu_torch.cli import generate_relevancy as cli
+    from semantic_abstraction_tpu_torch.ops.fused_mha import fused_mha
+
+    args = cli.parser().parse_args(["dataset", "(in memory)", "--random-weights"])
+    sal = cli.build_saliency(args)
+    prompt = cli.dataset_prompt(args)
+    items = writer_items(WRITER_SCENES)
+
+    def extract(item):
+        si, labels, img = item
+        return cli.extract_scene(sal, img, labels, prompt, args.saliency_config,
+                                 args.seed + si, WRITER_STORE)
+
+    t0 = time.perf_counter()
+    ref_maps, _ = extract(items[-1])
+    ref_maps = ref_maps.float().cpu().numpy()
+    print(f"[writer] warm-up scene {time.perf_counter() - t0:.3f} s", flush=True)
+
+    sink = []
+
+    def write(item, arrays):
+        maps, feats = arrays
+        raw_mean = feats.mean(axis=0)
+        rows, frows = cli.scene_rows(maps, feats)
+        sink.append((item[0], item[1], maps.astype(np.float32), rows, frows, raw_mean))
+
+    stats = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_mha.launches = 0
+    t0 = time.perf_counter()
+    failures = cli.pipelined(items, extract, write, sal.device, stats=stats)
+    wall = time.perf_counter() - t0
+    launches = fused_mha.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    if failures or [s[0] for s in sink] != list(range(WRITER_SCENES)):
+        raise AssertionError(f"writer: {failures} failures, sink order {[s[0] for s in sink]}")
+    n_maps = 0
+    for si, labels, maps, rows, frows, raw_mean in sink:
+        n_maps += len(labels)
+        if maps.shape != (len(labels),) + WRITER_STORE or not np.isfinite(maps).all():
+            raise AssertionError(f"writer scene {si}: maps {maps.shape}")
+        if rows.shape[0] != len(labels) + 1 or frows.shape != (len(labels) + 1, 512):
+            raise AssertionError(f"writer scene {si}: rows {rows.shape} {frows.shape}")
+        if np.abs(np.linalg.norm(frows, axis=-1) - 1).max() > 1e-5 or np.abs(
+                frows[-1] - raw_mean / np.linalg.norm(raw_mean)).max() > 1e-6:
+            raise AssertionError(f"writer scene {si}: features not unit-norm or no mean row")
+    diff = np.abs(sink[-1][2] - ref_maps).max()
+    if diff > 2.0**-9 * np.abs(ref_maps).max():
+        raise AssertionError(f"writer: the pipelined copy of the last scene is {diff} off "
+                             "its synchronous extraction")
+    if launches <= 0:
+        raise AssertionError("the writer launched no fused_mha kernel")
+    print(f"[writer] {WRITER_SCENES} scenes ({[len(s[1]) for s in sink]} labels, "
+          f"store {WRITER_STORE}) in {wall:.3f} s = {wall / WRITER_SCENES:.3f} s a scene, "
+          f"{n_maps / wall} maps/s; copies {json.dumps(stats)}; fused_mha launches "
+          f"{launches} = {launches / WRITER_SCENES} a scene; peak mem GB {peak:.2f}; "
+          f"pipelined vs synchronous max diff {diff} card={card}", flush=True)
+    return launches, stats
+
+
+def inference_scene(directory: str) -> str:
+    """A seeded 480x640 RGB-D scene pickle (the ``visualize`` input): a
+    wavy back wall 1.3-1.8 m away and a box 0.8 m away, seen from the
+    origin, with INFERENCE_CLASSES and INFERENCE_DESCRIPTIONS."""
+    import pickle
+
+    h, w = 480, 640
+    rs = np.random.RandomState(0)
+    yy, xx = np.mgrid[0:h, 0:w]
+    depth = (1.55 + 0.25 * np.sin(xx / 60.0) * np.cos(yy / 45.0)).astype(np.float32)
+    depth[300:420, 100:300] = 0.8
+    scene = {"rgb": rs.randint(0, 255, (h, w, 3), dtype=np.uint8), "depth": depth,
+             "cam_intr": np.array([[w / 2, 0, w / 2], [0, w / 2, h / 2], [0, 0, 1]],
+                                  np.float32),
+             "cam_extr": np.eye(4, dtype=np.float32),
+             "ovssc_obj_classes": INFERENCE_CLASSES,
+             "descriptions": INFERENCE_DESCRIPTIONS}
+    path = os.path.join(directory, "scene.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(scene, f)
+    return path
+
+
+def _inference_args(command: str, scene: str, dump: str):
+    from semantic_abstraction_tpu_torch.cli import visualize as vis
+
+    g = str(INFERENCE_GRID)
+    return vis.parser().parse_args([
+        command, scene, "--random-weights", "--sampling_shape", g, g, g,
+        "--num_input_pts", "80000", "--cutoff", str(INFERENCE_CUTOFF), "--dump-path", dump])
+
+
+def tsdf_ties(diff_idx, vox_world, depth, intr, pose, trunc, eps=1e-4):
+    """Which of the voxels ``diff_idx`` sit at a rounding tie of the fusion:
+    the pixel within ``eps`` of a half pixel, or the depth difference within
+    ``eps`` of the truncation margin (float64, the JAX package's formula)."""
+    h, w = depth.shape
+    inv = np.linalg.inv(np.asarray(pose, np.float64))
+    cam = vox_world[diff_idx].astype(np.float64) @ inv[:3, :3].T + inv[:3, 3]
+    z = np.where(cam[:, 2] == 0, 1e-12, cam[:, 2])
+    px = cam[:, 0] * intr[0, 0] / z + intr[0, 2]
+    py = cam[:, 1] * intr[1, 1] / z + intr[1, 2]
+    tie = np.zeros(len(diff_idx), bool)
+    for q in (px, py):
+        tie |= np.abs(np.abs(q - np.floor(q)) - 0.5) < eps
+    ix = np.clip(np.round(px), 0, w - 1).astype(int)
+    iy = np.clip(np.round(py), 0, h - 1).astype(int)
+    return tie | (np.abs(depth[iy, ix] - cam[:, 2] + trunc) < eps)
+
+
+def phase_tsdf(card: str, scene: str):
+    """TSDF fusion of the inference frame at INFERENCE_GRID^3 on the card
+    against the same on the CPU: tsdf and weight within 1e-5, every voxel that differs
+    counted and attributed to a rounding tie (``tsdf_ties``); and the host
+    seconds of the ``tsdf`` network input of a dataset item (a 128^3 volume
+    fused on the CPU, as the datasets do)."""
+    import pickle
+
+    import torch
+
+    from semantic_abstraction_tpu_torch.ops.fusion import TSDFVolume
+
+    with open(scene, "rb") as f:
+        data = pickle.load(f)
+    bounds = np.array([[-1.0, 1.0], [-1.0, 1.0], [-0.1, 1.9]])
+    frame = (data["rgb"], data["depth"], data["cam_intr"], data["cam_extr"])
+    vols, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        vols[dev] = TSDFVolume(bounds, voxel_size=2.0 / INFERENCE_GRID, device=dev)
+        vols[dev].integrate(*frame)
+        torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+    g, c = vols["cuda"], vols["cpu"]
+    dt = (g._tsdf.cpu() - c._tsdf).abs()
+    dw = (g._weight.cpu() - c._weight).abs()
+    differ = ((dt > 1e-5) | (dw > 1e-5)).nonzero().reshape(-1).numpy()
+    ties = tsdf_ties(differ, c._vox_world.numpy(), data["depth"], data["cam_intr"],
+                     data["cam_extr"], c._trunc_margin)
+    if not ties.all():
+        raise AssertionError(f"tsdf: {int((~ties).sum())} of {len(differ)} differing "
+                             "voxels are not at a rounding tie")
+    observed = int((c._weight > 0).sum())
+    del vols, g, c
+    t0 = time.perf_counter()
+    item = TSDFVolume(bounds, voxel_size=2.0 / 128, device="cpu")
+    item.integrate(data["rgb"], data["depth"], data["cam_intr"], data["cam_extr"])
+    item.get_volume()
+    item_s = time.perf_counter() - t0
+    print(f"[tsdf] {INFERENCE_GRID}^3 card {secs['cuda']:.3f} s, cpu {secs['cpu']:.3f} s (volume "
+          f"built and one 480x640 frame); {observed} voxels observed; tsdf max diff "
+          f"{dt.max().item()}, weight max diff {dw.max().item()}; {len(differ)} voxels "
+          f"differ beyond 1e-5, {int(ties.sum())} of them at a rounding tie; dataset "
+          f"item 128^3 on the host {item_s:.3f} s card={card}", flush=True)
+
+
+def phase_inference(card: str, task: str, scene: str, dump: str):
+    """``visualize ovssc-inference`` or ``vool-inference`` at full width
+    through the CLI's own commands: random weights (seed 0, the
+    ``SemAbs3DConfig()`` / ``SemAbsVOOLConfig()`` of the CLI's defaults),
+    bf16, the relevancy of "ours" on the 480x640 frame, 80,000 input points,
+    the 240^3 sweep; the seconds of each stage (the device synchronized at
+    each stage's end), the kernel launches of the run and peak memory.
+    OVSSC: meshes are written and K3 runs 33 times a class; VOOL: a point
+    cloud a description and 66 K3 launches each (target and reference)."""
+    import torch
+
+    from semantic_abstraction_tpu_torch.cli import visualize as vis
+    from semantic_abstraction_tpu_torch.ops.channel_moments import channel_moments
+    from semantic_abstraction_tpu_torch.ops.fused_mha import fused_mha
+
+    args = _inference_args(f"{task}-inference", scene, dump)
+    timings = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_mha.launches = channel_moments.launches = 0
+    t0 = time.perf_counter()
+    out = (vis.cmd_ovssc if task == "ovssc" else vis.cmd_vool)(args, timings)
+    wall = time.perf_counter() - t0
+    launches = {"fused_mha": fused_mha.launches, "channel_moments": channel_moments.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    n = INFERENCE_GRID
+    if task == "ovssc":
+        per = len(INFERENCE_CLASSES)
+        pred, keep = out["prediction"], out["keep"]
+        if pred.shape != (n, n, n) or keep.shape != (n, n, n) or not keep.any():
+            raise AssertionError(f"ovssc inference: prediction {pred.shape}, "
+                                 f"{int(keep.sum())} points kept")
+        if not out["written"]:
+            raise AssertionError("ovssc inference wrote no mesh")
+        extra = (f"{int(keep.sum())} of {n**3} points kept, class counts there "
+                 f"{np.bincount(pred[keep], minlength=per).tolist()}, meshes "
+                 f"{[(os.path.basename(p), os.path.getsize(p)) for p in out['written']]}")
+        want_k3 = 33 * per
+    else:
+        per = len(INFERENCE_DESCRIPTIONS)
+        logits = out["logits"]
+        if len(logits) != per or any(v.shape != (n**3,) or not np.isfinite(v).all()
+                                     for v in logits.values()):
+            raise AssertionError("vool inference: logits not finite or of another shape")
+        extra = (f"logit ranges {[(float(v.min()), float(v.max())) for v in logits.values()]}, "
+                 f"files {[(os.path.basename(p), os.path.getsize(p)) for p in out['written']]}")
+        want_k3 = 66 * per
+    if launches["channel_moments"] != want_k3 or launches["fused_mha"] <= 0:
+        raise AssertionError(f"{task} inference launches {launches}, K3 expected {want_k3}")
+    print(f"[{task}-inference] wall {wall:.3f} s; stage seconds "
+          f"{json.dumps({k: round(v, 4) for k, v in timings.items()})}; launches {launches}; "
+          f"peak mem GB {peak:.2f}; {extra} card={card}", flush=True)
+    return launches, timings
 
 
 def phase_main(card: str):
@@ -1305,6 +1599,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     loop = {task: phase_loop(card, task, 1.0 / s)
             for task, s in (("ovssc", step_s), ("vool", vool_s))}
+    torch.cuda.empty_cache()
+    writer_launches, _ = phase_writer(card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = inference_scene(tmp)
+        phase_tsdf(card, scene)
+        inference = {}
+        for task in ("ovssc", "vool"):
+            inference[task], _ = phase_inference(card, task, scene, os.path.join(tmp, "vis"))
+            torch.cuda.empty_cache()
 
     # the kernels line. fused_mha: bf16 at the ViT-B/32 path's dominant
     # chunk (48 rows, T = 50), errors over every bf16 shape of the two
@@ -1328,6 +1632,8 @@ def main() -> int:
         return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
     main = pick(rows, dtype="bfloat16", B=48, T=50)
+    minf = pick(mrows, dtype="bfloat16", B=1, S=128**3)
+    minf_bf16 = [r for r in mrows if r["dtype"] == "bfloat16" and r["B"] == 1]
     vitl = pick(rows, dtype="bfloat16", B=48, T=257)
     path_rows = [r for r in rows if r["dtype"] == "bfloat16"
                  and (r["B"], r["T"]) in ((12, 50), (42, 50), (45, 50), (48, 50), (48, 257))]
@@ -1347,6 +1653,11 @@ def main() -> int:
         "max_rel_err": max(r["max_rel_err"] for r in path_rows),
         **timing(main),
         "vit_l14": {"launches": vitl_launches["fused_mha"], **timing(vitl)},
+        # the writer's pipelined scenes and each inference run's relevancy
+        "writer": {"launches": writer_launches,
+                   "per_scene": writer_launches / WRITER_SCENES},
+        "ovssc_inference": {"launches": inference["ovssc"]["fused_mha"]},
+        "vool_inference": {"launches": inference["vool"]["fused_mha"]},
     }, {
         "name": "cam_accumulate", "route": "cuda",
         "source": "semantic_abstraction_tpu_torch/ops/csrc/cam_accumulate.cu",
@@ -1364,6 +1675,15 @@ def main() -> int:
         "max_rel_err": max(r["max_rel_err"] for r in mbf16),
         **timing(mmain),
         "vool": {"launches": vool_launches["channel_moments"], **timing(mvool)},
+        # the inference paths' B = 1 forward rows: launches of the OVSSC run
+        # (4 classes) and the VOOL run (2 descriptions, target and
+        # reference), errors over the 11 bf16 rows, the time at (1, 16, 128^3)
+        "inference": {
+            "ovssc_launches": inference["ovssc"]["channel_moments"],
+            "vool_launches": inference["vool"]["channel_moments"],
+            "max_abs_err": max(r["max_abs_err"] for r in minf_bf16),
+            "max_rel_err": max(r["max_rel_err"] for r in minf_bf16),
+            **timing(minf)},
         "backward": {
             "name": "channel_moments_backward", "route": "cuda",
             "source": "semantic_abstraction_tpu_torch/ops/csrc/channel_moments.cu",

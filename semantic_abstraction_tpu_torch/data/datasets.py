@@ -22,9 +22,9 @@ Departures from the reference:
 A copy of ``semantic_abstraction_tpu/data/datasets.py`` for the port: every
 numpy draw is the same, so an item is bit for bit the JAX package's for the
 same config, epoch and index. ``h5py`` is imported where a scene file is
-opened. The ``tsdf`` network input needs TSDF fusion
-(``semantic_abstraction_tpu/ops/fusion.py`` ``TSDFVolume``), which the port
-does not have yet: a dataset asked for it raises ``NotImplementedError``.
+opened. The ``tsdf`` network input fuses the frame with the port's
+``ops.fusion.TSDFVolume`` on the CPU (``device="cpu"``): items stay host
+numpy, as every other transform here.
 """
 from __future__ import annotations
 
@@ -115,7 +115,6 @@ class SceneUnderstandDataset:
         self.use_synonyms = use_synonyms
         self.load_gt = load_gt
         self.epoch = 0
-        _require_no_tsdf(cfg)
 
     def __len__(self):
         return len(self.keys)
@@ -138,13 +137,17 @@ class SceneUnderstandDataset:
         return self.keys[idx].split("/")[-1].split(".")[0]
 
 
-def _require_no_tsdf(cfg: "DataConfig") -> None:
-    if "tsdf" in cfg.network_inputs:
-        raise NotImplementedError(
-            "the 'tsdf' network input needs TSDF fusion (TSDFVolume of the JAX "
-            "package's ops/fusion.py), which the port does not have yet; use "
-            "the saliency, patch_masks or rgb inputs"
-        )
+def _tsdf_vol(cfg: "DataConfig", rgb, depth, cam_intr, cam_pose, transform) -> np.ndarray:
+    """The frame fused into a ``tsdf_shape`` volume over the scene bounds,
+    on the CPU, at the pose the domain transform moved it to."""
+    from ..ops.fusion import TSDFVolume
+
+    sb = np.asarray(cfg.scene_bounds)
+    voxel_size = ((sb[1] - sb[0]) / np.asarray(cfg.tsdf_shape)).min()
+    vol = TSDFVolume(sb.T, voxel_size=float(voxel_size), device="cpu")
+    final_pose = cam_pose if transform is None else transform @ cam_pose
+    vol.integrate(rgb, depth, cam_intr, final_pose)
+    return vol.get_volume()[0]
 
 
 def _apply_synonyms(labels):
@@ -480,8 +483,10 @@ class SceneCompletionDataset(SceneUnderstandDataset):
                 r["output_label_pts"] = o["output_label_pts"]
         r["input_xyz_pts"] = inp["xyz_pts"]
         r["input_feature_pts"] = inp["input_feature_pts"]
-        _require_no_tsdf(cfg)
-        r["tsdf_vol"] = np.ones(1, np.float32)
+        if "tsdf" in cfg.network_inputs:
+            r["tsdf_vol"] = _tsdf_vol(cfg, r["rgb"], depth, cam_intr, cam_pose, transform)
+        else:
+            r["tsdf_vol"] = np.ones(1, np.float32)
 
 
 class ObjectLocalizationDataset(SceneUnderstandDataset):
@@ -676,8 +681,14 @@ class ObjectLocalizationDataset(SceneUnderstandDataset):
         for k in side:
             r[k] = inp[k]
 
-        _require_no_tsdf(cfg)
-        r["tsdf_vol"] = np.ones(1, np.float32)
+        if "tsdf" in cfg.network_inputs:
+            # the reference integrates the /255-normalized image here
+            # (dataset.py:345, :591), unlike SceneCompletionDataset, which
+            # integrates raw 0-255; only the (discarded) color volume differs
+            r["tsdf_vol"] = _tsdf_vol(cfg, rgb / 255.0, depth, cam_intr, cam_pose,
+                                      transform)
+        else:
+            r["tsdf_vol"] = np.ones(1, np.float32)
 
         if "output_label_pts" in r:
             num_out = cfg.num_output_pts if not self.return_vis else -1

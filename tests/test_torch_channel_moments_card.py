@@ -55,6 +55,15 @@ def test_kernel_matches_plain_version(cuda, dtype, c, s, b):
     assert_moments_close(got, x)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,s", UNET_SHAPES)
+def test_inference_rows_match_plain_version(cuda, dtype, c, s):
+    """B = 1, forward only: the UNet of visualize's inference, one volume a
+    class or a description's stream, under no_grad."""
+    test_kernel_matches_plain_version(cuda, dtype, c, s, 1)
+
+
 def grads(x, seed=0):
     g = torch.Generator(device=x.device).manual_seed(seed)
     return (torch.randn(x.shape[:2], device=x.device, generator=g),

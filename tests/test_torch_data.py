@@ -329,11 +329,39 @@ def test_gt_seg_items_match_jax(corpus):
 
 
 @pytest.mark.parametrize("kind", ["ovssc", "vool"])
-def test_tsdf_input_raises_a_clear_error(kind, corpus):
-    d, names = corpus
-    cls = tds.SceneCompletionDataset if kind == "ovssc" else tds.ObjectLocalizationDataset
-    with pytest.raises(NotImplementedError, match="TSDFVolume"):
-        cls(d, names, tds.DataConfig(network_inputs=("saliency", "tsdf")))
+def test_tsdf_items_match_jax(kind, corpus, monkeypatch):
+    """The ``tsdf`` input: every other key bit for bit, and ``tsdf_vol``
+    within atol 1e-5 of JAX's except at voxels whose pixel or truncation
+    test sits at a rounding tie (``test_torch_fusion.tie_voxels``, from the
+    frame JAX fused); those are counted, and here there are none."""
+    from semantic_abstraction_tpu.ops import fusion as jfu
+    from test_torch_fusion import tie_voxels
+
+    fused = []
+    integrate = jfu.TSDFVolume.integrate
+
+    def spy(self, color_im, depth_im, cam_intr, cam_pose, obs_weight=1.0):
+        fused.append((self, (np.asarray(depth_im, np.float32),
+                             np.asarray(cam_intr, np.float32), np.asarray(cam_pose))))
+        return integrate(self, color_im, depth_im, cam_intr, cam_pose, obs_weight)
+
+    monkeypatch.setattr(jfu.TSDFVolume, "integrate", spy)
+    case = dict(cfg=dict(CFG, network_inputs=("saliency", "tsdf"), tsdf_shape=(32, 32, 32)))
+    jd, td = _datasets(kind, corpus, case)
+    differ_at_ties = 0
+    for i in range(len(td)):
+        fused.clear()
+        j, t = jd[i], td[i]
+        jt, tt = j.pop("tsdf_vol"), t.pop("tsdf_vol")
+        assert_same(j, t, f"{kind} tsdf item {i}")
+        assert tt.shape == jt.shape == (32, 32, 32) and tt.dtype == jt.dtype == np.float32
+        assert (jt != -1).any() and (jt == -1).any()  # observed and unobserved voxels
+        (vol, frame), = fused
+        ties = tie_voxels(np.asarray(vol._vox_world), [frame], vol._trunc_margin)
+        differ = (np.abs(tt - jt) > 1e-5).reshape(-1)
+        assert not (differ & ~ties).any(), f"item {i}: {(differ & ~ties).sum()} voxels"
+        differ_at_ties += int(differ.sum())
+    assert differ_at_ties == 0
 
 
 def test_synonyms_and_relations_are_the_jax_tables():
