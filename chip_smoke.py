@@ -9,13 +9,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 2. hold each kernel against its plain PyTorch version on the card at its
    path's shapes, in f32 and bf16, and time kernel, plain version, the
    PyTorch library call (a yardstick only) and the bound: ``fused_mha`` at
-   the ViT-B/32 path's tile chunks (T = 50) and at ViT-L/14's T = 257 and
-   577, and (checked, not timed) at B = 1 on every ragged edge of its
+   the ViT-B/32 path's tile chunks (T = 50), at get_visual_feature's one
+   image (B = 1, T = 50) and at ViT-L/14's T = 257 and 577, and (checked,
+   not timed) at B = 1 on every ragged edge of its
    64-row and 64-key tiles up to its 2048-token bound; ``cam_accumulate``
    at the ViT-B/32 and ViT-L/14 shapes of the multi-tail gradcam;
    ``channel_moments`` and its backward kernel at the 11 (C, S) shapes of
    the full-size UNet's GroupNorms, at B = 4 (OVSSC) and B = 8 (VOOL) (the
-   backward bit for bit), and the forward at B = 1 (the inference paths).
+   backward bit for bit), the forward at B = 1 (the inference paths), and
+   both (checked, not timed) at a data-parallel rank's B = 2 in f32.
    Times are device times: the calls captured in a
    CUDA graph and replayed, so that the host's launch rate does not set
    them;
@@ -84,7 +86,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the 240^3 sweep; 4 classes, 2 descriptions): the seconds of each stage
    (CLIP weights, relevancy, UNet, dense sweep, read-back, TSDF and
    carving, marching and export on the host), K1 launches, K3 launches (33
-   a class, 66 a description) and peak memory.
+   a class, 66 a description) and peak memory;
+16. data parallelism, world size 1: ``SemAbs3DConfig()`` at --batch_size 4,
+   bf16, through ``experiment.train`` as phase 12 drives it, in a rank of a
+   NCCL group (this script, started as torch.distributed.run starts a
+   rank), the train step under DDP; then one process without a group from
+   the same seed and items: the first 3 steps' loss and grad norm must
+   agree; steps/s beside phase 7's resident rate, K3 launches a step;
+17. data parallelism, 2 ranks over gloo sharing the one card:
+   ``SemAbs3DConfig()``, f32, 2 rows a rank of 2 patches whose halves keep
+   different point counts (the masked mean over both ranks), 2 steps
+   against one process at B = 4 from the same weights: loss, grad norm and
+   every parameter; a rank that fails or times out fails the run;
+18. an RN50-shaped ModifiedResNet CLIP from a seeded state dict in the
+   reference layout (no checkpoint is in the repo): ``encode_image`` on the
+   card against the CPU and images/s at B = 32; ``get_visual_feature`` on
+   the seeded 480x640 image for ViT-B/32 (12 K1 launches a call) and RN50,
+   card against CPU, ms a call.
+
+THOR datagen (``datagen/``, ``cli/generate_thor_data.py``) does no device
+work and ``ai2thor`` is not installed: it has no phase.
 
 Each path's kernel launch counts are set to 0 just before its timed run
 and read just after. Prints a ``{"kernels": [...]}`` line, the card's name
@@ -110,7 +131,7 @@ HEADLINE_LABELS = [
     "vase", "fireplace", "abstract painting of a vespa", "carpet", "wall",
 ]
 TIMED_IMAGES = 3
-TIMED_VITL_IMAGES = 2
+TIMED_VITL_IMAGES = 1
 TIMED_STEPS = 5
 # OpenAI ViT-L/14, the published shape (the JAX package reads it from a
 # state dict with config_from_state_dict; no preset in either package)
@@ -130,6 +151,9 @@ MOMENTS_SHAPES = [(b, c, s) for b in (4, 8) for c, s in UNET_GN_SHAPES]
 # and at B = 1, forward only: the inference paths' UNet under no_grad (one
 # volume a class, or a description's target or reference)
 MOMENTS_INFERENCE_SHAPES = [(1, c, s) for c, s in UNET_GN_SHAPES]
+# a rank's rows of the 2-rank data-parallel OVSSC step (B = 2, f32):
+# checked, forward and backward, not timed
+MOMENTS_RANK_SHAPES = [(2, c, s) for c, s in UNET_GN_SHAPES]
 # the small nets of the card-vs-CPU phases
 SMALL_UNET = dict(voxel_shape=(16, 16, 16), unet_num_channels=8, unet_f_maps=4,
                   unet_num_groups=2, unet_num_levels=3, pts_feat_extractor_hidden_dim=16)
@@ -184,7 +208,8 @@ def phase_kernel(card: str):
     # (B, T, W): ViT-B/32 tile chunks of the main path at tile_batch_size 32
     # ("ours" at 480x640: 12, 45, 42, 48 rows) and the batches 32, 64, 90;
     # a ViT-L/14 chunk at 224 px (T = 257) and at 336 px (T = 577)
-    shapes = [(b, 50, 768) for b in (12, 32, 42, 45, 48, 64, 90)]
+    # and get_visual_feature's one image (B = 1, T = 50)
+    shapes = [(b, 50, 768) for b in (1, 12, 32, 42, 45, 48, 64, 90)]
     shapes += [(48, 257, 1024), (48, 577, 1024)]
     # f32: sums in another order than cuBLAS; bf16: the output and the probs
     # round to bf16 (1 ulp = 2^-8 relative), so 2 ulp of |out| <= 2
@@ -402,6 +427,22 @@ def phase_moments(card: str):
                   f"card={card}", flush=True)
             del x, s1, s2, r1, r2, gx, ref, lib_out
             torch.cuda.empty_cache()
+    for b, c, s in MOMENTS_RANK_SHAPES:
+        x = torch.randn(b, c, s, device="cuda", generator=g) * 2 + 0.5
+        (s1, s2), (r1, r2) = channel_moments(x), channel_moments_reference(x)
+        g1 = torch.randn(b, c, device="cuda", generator=g)
+        g2 = torch.randn(b, c, device="cuda", generator=g) / s
+        ok = bool(((s1 - r1).abs() <= 1e-5 * x.abs().sum(-1) + 1e-6).all()
+                  and ((s2 - r2).abs() <= 1e-5 * r2 + 1e-6).all()
+                  and torch.equal(channel_moments_backward(x, g1, g2),
+                                  channel_moments_backward_reference(x, g1, g2)))
+        if not ok:
+            raise AssertionError(f"channel_moments float32 B={b} C={c} S={s} (a rank's "
+                                 "rows) disagrees with its plain version")
+        del x, s1, s2, r1, r2
+    print(f"[kernel] channel_moments forward and backward float32 at the rank shapes "
+          f"{MOMENTS_RANK_SHAPES[0][0]} x (C, S) of the UNet: within tolerance and bit-equal "
+          f"card={card}", flush=True)
     return rows, brows
 
 
@@ -1113,6 +1154,91 @@ def phase_loop(card: str, task: str, resident_steps_per_s: float):
     return launches, t["steps"]
 
 
+# OpenAI RN50's shape: 4 stages of (3, 4, 6, 3) bottlenecks at width 64,
+# a 1024-wide embedding, the 32-head attention pool at 224 px, and a
+# 12-block text tower of width 512
+RN50 = dict(layers=(3, 4, 6, 3), width=64, resolution=224, embed_dim=1024,
+            text_width=512, text_layers=12, context_length=77, vocab_size=49408)
+
+
+def resnet_clip_state_dict(seed: int, layers=(3, 4, 6, 3), width: int = 64,
+                           resolution: int = 224, embed_dim: int = 1024,
+                           text_width: int = 512, text_layers: int = 12,
+                           context_length: int = 77, vocab_size: int = 49408) -> dict:
+    """A ModifiedResNet CLIP state dict in the reference layout (what
+    ``torch.jit.load`` of an OpenAI RN checkpoint gives, BatchNorm's
+    ``num_batches_tracked`` included), numpy arrays drawn from
+    ``np.random.RandomState(seed)``: He-scaled convs, BatchNorm statistics
+    and affines near identity (the last of each bottleneck at 0.2, so the
+    residual stream grows slowly), linears at 1/sqrt(fan-in). No
+    checkpoint is in the repo; the weights are random."""
+    rs = np.random.RandomState(seed)
+    f32 = np.float32
+    sd = {}
+
+    def conv(key, c_out, c_in, k):
+        sd[key + ".weight"] = (rs.randn(c_out, c_in, k, k) * np.sqrt(2.0 / (c_in * k * k))
+                               ).astype(f32)
+
+    def bn(key, n, gain=1.0):
+        sd[key + ".weight"] = (rs.uniform(0.5, 1.0, n) * gain).astype(f32)
+        sd[key + ".bias"] = (rs.randn(n) * 0.1).astype(f32)
+        sd[key + ".running_mean"] = (rs.randn(n) * 0.1).astype(f32)
+        sd[key + ".running_var"] = rs.uniform(0.5, 1.5, n).astype(f32)
+        sd[key + ".num_batches_tracked"] = np.array(0, np.int64)
+
+    def linear(key, d_out, d_in):
+        sd[key + ".weight"] = (rs.randn(d_out, d_in) * d_in**-0.5).astype(f32)
+        sd[key + ".bias"] = (rs.randn(d_out) * 0.01).astype(f32)
+
+    conv("visual.conv1", width // 2, 3, 3)
+    bn("visual.bn1", width // 2)
+    conv("visual.conv2", width // 2, width // 2, 3)
+    bn("visual.bn2", width // 2)
+    conv("visual.conv3", width, width // 2, 3)
+    bn("visual.bn3", width)
+    inplanes = width
+    for i, n in enumerate(layers):
+        planes = width * 2**i
+        for b in range(n):
+            base = f"visual.layer{i + 1}.{b}"
+            conv(base + ".conv1", planes, inplanes, 1)
+            bn(base + ".bn1", planes)
+            conv(base + ".conv2", planes, planes, 3)
+            bn(base + ".bn2", planes)
+            conv(base + ".conv3", planes * 4, planes, 1)
+            bn(base + ".bn3", planes * 4, gain=0.2)
+            if b == 0:  # stride 2, or inplanes != 4 * planes at layer 1
+                conv(base + ".downsample.0", planes * 4, inplanes, 1)
+                bn(base + ".downsample.1", planes * 4)
+            inplanes = planes * 4
+    embed = width * 32
+    sd["visual.attnpool.positional_embedding"] = (
+        rs.randn((resolution // 32) ** 2 + 1, embed) * embed**-0.5).astype(f32)
+    for n in ("k", "q", "v"):
+        linear(f"visual.attnpool.{n}_proj", embed, embed)
+    linear("visual.attnpool.c_proj", embed_dim, embed)
+
+    tw = text_width
+    sd["token_embedding.weight"] = (rs.randn(vocab_size, tw) * 0.02).astype(f32)
+    sd["positional_embedding"] = (rs.randn(context_length, tw) * 0.01).astype(f32)
+    for i in range(text_layers):
+        base = f"transformer.resblocks.{i}"
+        sd[base + ".attn.in_proj_weight"] = (rs.randn(3 * tw, tw) * tw**-0.5).astype(f32)
+        sd[base + ".attn.in_proj_bias"] = np.zeros(3 * tw, f32)
+        linear(base + ".attn.out_proj", tw, tw)
+        linear(base + ".mlp.c_fc", 4 * tw, tw)
+        linear(base + ".mlp.c_proj", tw, 4 * tw)
+        for ln in ("ln_1", "ln_2"):
+            sd[f"{base}.{ln}.weight"] = np.ones(tw, f32)
+            sd[f"{base}.{ln}.bias"] = np.zeros(tw, f32)
+    sd["ln_final.weight"] = np.ones(tw, f32)
+    sd["ln_final.bias"] = np.zeros(tw, f32)
+    sd["text_projection"] = (rs.randn(tw, embed_dim) * tw**-0.5).astype(f32)
+    sd["logit_scale"] = np.array(np.log(1 / 0.07), f32)
+    return sd
+
+
 # the writer's in-memory corpus: THOR-like object lists (20 names, ids from
 # 3 as the THOR files number them) and 6 descriptions a scene
 THOR_OBJECTS = ("chair", "table", "sofa", "television", "lamp", "bed", "pillow", "plant",
@@ -1382,6 +1508,398 @@ def phase_inference(card: str, task: str, scene: str, dump: str):
     return launches, timings
 
 
+# ---------------------------------------------------------------------------
+# data parallelism (phases 16 and 17): ranks are copies of this script
+# ---------------------------------------------------------------------------
+
+# the world-size-1 NCCL run: --batch_size rows a step, loader-fed steps, of
+# which the first DDP_COMPARED are held against one process
+DDP_BATCH = 4
+DDP_STEPS = 10
+DDP_COMPARED = 3
+# its stated tolerance: bf16 steps that differ only in the order of the
+# scatter's and the sampler backward's atomics
+DDP_LOSS_RTOL, DDP_GRAD_NORM_RTOL = 1e-3, 1e-2
+# the 2-rank gloo run on the one card: 2 rows a rank of GLOO_PATCHES
+# patches (one process then holds 8 volumes of 128^3 in f32), f32 with TF32
+# off, GLOO_STEPS steps at the train CLI's recipe (lr 1e-3 after 1024
+# warm-up steps, as phases 7 and 16). At lr 1e-2 without warm-up, LAMB's
+# first update (close to lr x sign(g)) turns f32 order differences in
+# near-zero gradients into whole-update differences, and the second step's
+# grad norm moved 1.9e-4 from one process's (on an H100 80GB HBM3)
+GLOO_WORLD, GLOO_ROWS, GLOO_PATCHES, GLOO_STEPS = 2, 2, 2, 2
+GLOO_OPT = dict(num_training_steps=1000)
+# its stated tolerance, phase 3's for f32 steps whose sums run in another
+# order (cuDNN picks its algorithms per batch size)
+GLOO_RTOL, GLOO_ATOL = 1e-4, 1e-5
+RANK_TIMEOUT_S = 420
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def run_ranks(mode: str, world: int, out_dir: str, share_card: bool = False,
+              env: dict = None) -> list:
+    """``world`` copies of this script as the ranks of ``mode``, with the
+    environment torch.distributed.run gives them (LOCAL_RANK 0 for every
+    rank when they share the card). Fails when any rank fails or outlives
+    RANK_TIMEOUT_S; every rank is killed then. -> each rank's JSON."""
+    port = str(_free_port())
+    procs, logs = [], []
+    for r in range(world):
+        renv = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                    LOCAL_RANK="0" if share_card else str(r), MASTER_ADDR="127.0.0.1",
+                    MASTER_PORT=port, **(env or {}))
+        log = open(os.path.join(out_dir, f"{mode}-rank{r}.log"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-of", mode, out_dir],
+            env=renv, stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    tails = []
+    for log in logs:
+        log.seek(0)
+        tails.append(log.read()[-4000:])
+        log.close()
+    codes = [p.returncode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"{mode}: ranks exited {codes}:\n" + "\n---\n".join(tails))
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"{mode}-rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def ddp_loop_args(device: str):
+    from semantic_abstraction_tpu_torch.cli import common
+
+    return common.config_parser().parse_args([
+        "--file_path", "(in memory)", "--epochs", "1", "--eval_freq", "1000",
+        "--save_freq", "1000", "--num_workers", str(LOOP_WORKERS), "--seed", "0",
+        "--batch_size", str(DDP_BATCH), "--device", device])
+
+
+def loop_train(args, steps: int, log_dir: str):
+    """``experiment.build_setup`` + ``train`` of the OVSSC net over
+    ``MemoryScenes`` for ``steps`` loader-fed steps -> (timing record,
+    moments launches, peak GB, whether the step was data-parallel)."""
+    import torch
+
+    from semantic_abstraction_tpu_torch.ops.channel_moments import (
+        channel_moments, channel_moments_backward)
+    from semantic_abstraction_tpu_torch.runtime import experiment as exp
+
+    # one length for both runs: the sampler's shuffle depends on it
+    train_ds = MemoryScenes("ovssc", length=DDP_STEPS * DDP_BATCH + 1)
+    setup = exp.build_setup(args, "ovssc", "semantic_abstraction", {"train": train_ds})
+    timings = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    channel_moments.launches = channel_moments_backward.launches = 0
+    exp.train(args, setup, log_dir=log_dir, max_steps_per_epoch=steps, timings=timings)
+    launches = {"channel_moments": channel_moments.launches,
+                "channel_moments_backward": channel_moments_backward.launches}
+    return timings[0], launches, torch.cuda.max_memory_allocated() / 1e9, \
+        setup["data_parallel"]
+
+
+def gloo_batch(device):
+    """The OVSSC batch of ``ovssc_batch`` at GLOO_WORLD x GLOO_ROWS rows of
+    GLOO_PATCHES patches, whose halves keep different numbers of points:
+    the third row's first patch is padding, a third of the fourth row's
+    query points are out of bounds."""
+    b = ovssc_batch(np.random.RandomState(0), GLOO_WORLD * GLOO_ROWS, GLOO_PATCHES,
+                    80000, 400000, "cpu")
+    b["padding_mask"][2, 0] = True
+    b["out_of_bounds_pts"][3, :, : 400000 // 3] = True
+    return {k: v.to(device) for k, v in b.items()}
+
+
+def gloo_steps(device, data_parallel: bool):
+    """GLOO_STEPS f32 steps of ``SemAbs3DConfig()`` from seed 0's weights on
+    ``gloo_batch`` (this rank's rows when ``data_parallel``) -> (stats,
+    parameters on the host, moments launches, seconds a step)."""
+    import torch
+
+    from semantic_abstraction_tpu_torch import parallel
+    from semantic_abstraction_tpu_torch.models import SemAbs3DConfig, init_net
+    from semantic_abstraction_tpu_torch.ops.channel_moments import (
+        channel_moments, channel_moments_backward)
+    from semantic_abstraction_tpu_torch.runtime import (
+        init_train_state, make_optimizer, make_train_step, ovssc_forward_loss)
+
+    cfg = SemAbs3DConfig()
+    tx = make_optimizer(**GLOO_OPT)
+    state = init_train_state(init_net(0, cfg, device), tx)
+    step = make_train_step(ovssc_forward_loss, cfg, tx, compute_dtype=torch.float32,
+                           data_parallel=data_parallel)
+    batch = gloo_batch(device)
+    if data_parallel:
+        r = parallel.rank()
+        batch = {k: v[r * GLOO_ROWS:(r + 1) * GLOO_ROWS] for k, v in batch.items()}
+    torch.cuda.synchronize()
+    channel_moments.launches = channel_moments_backward.launches = 0
+    stats, times = [], []
+    for _ in range(GLOO_STEPS):
+        t0 = time.perf_counter()
+        state, st = step(state, batch)
+        stats.append({k: float(v) for k, v in st.items()})
+        times.append(time.perf_counter() - t0)
+    launches = {"channel_moments": channel_moments.launches,
+                "channel_moments_backward": channel_moments_backward.launches}
+    params = {k: v.detach().cpu() for k, v in state.model.named_parameters()}
+    return stats, params, launches, times
+
+
+def rank_main(mode: str, out_dir: str) -> int:
+    """One rank of phase 16 ("nccl": the world-size-1 loop) or 17 ("gloo":
+    the 2-rank steps sharing the card); its results go to
+    ``out_dir/<mode>-rank<r>.json`` (and ``.pt``, the parameters)."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from semantic_abstraction_tpu_torch import parallel
+
+    if mode == "gloo":
+        dist.init_process_group("gloo")  # NCCL takes one card a rank
+    device = parallel.maybe_initialize_distributed("cuda")
+    r = parallel.rank()
+    try:
+        out = {"backend": dist.get_backend(), "world": parallel.world_size(), "rank": r,
+               "device": str(device)}
+        if mode == "nccl":
+            with tempfile.TemporaryDirectory() as log_dir:
+                record, launches, peak, dp = loop_train(
+                    ddp_loop_args(str(device)), DDP_STEPS, log_dir)
+                out.update(record=record, launches=launches, peak_gb=peak,
+                           data_parallel=dp, wrote=sorted(os.listdir(log_dir)))
+        else:
+            stats, params, launches, times = gloo_steps(device, data_parallel=True)
+            torch.save(params, os.path.join(out_dir, f"{mode}-rank{r}.pt"))
+            out.update(stats=stats, launches=launches, step_s=times,
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        with open(os.path.join(out_dir, f"{mode}-rank{r}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        parallel.destroy_distributed()
+    return 0
+
+
+def phase_ddp_loop(card: str, resident_steps_per_s: float):
+    """Phase 16: ``SemAbs3DConfig()`` at --batch_size 4, bf16, through
+    ``experiment.train`` as phase 12 drives it, in one rank of a NCCL group
+    of world size 1 (the train step under DDP), then one process without a
+    group from the same seed and items: the first DDP_COMPARED steps' loss
+    and grad norm must agree (DDP_LOSS_RTOL, DDP_GRAD_NORM_RTOL)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        (rank,) = run_ranks("nccl", 1, out_dir, env={"SEMABS_DISTRIBUTED": "1"})
+    t = rank["record"]
+    if not (rank["backend"] == "nccl" and rank["data_parallel"]
+            and t["steps"] == DDP_STEPS and np.isfinite(t["losses"]).all()):
+        raise AssertionError(f"ddp-nccl: {rank}")
+    per_step = {k: n / t["steps"] for k, n in rank["launches"].items()}
+    if per_step != {"channel_moments": 33.0, "channel_moments_backward": 33.0}:
+        raise AssertionError(f"ddp-nccl: moments launches a step {per_step}")
+    with tempfile.TemporaryDirectory() as log_dir:
+        single, _, _, dp = loop_train(ddp_loop_args("cuda"), DDP_COMPARED, log_dir)
+    if dp:
+        raise AssertionError("the single process ran data-parallel")
+    worst = {}
+    for k, tol in (("losses", DDP_LOSS_RTOL), ("grad_norms", DDP_GRAD_NORM_RTOL)):
+        a, b = np.asarray(t[k][:DDP_COMPARED]), np.asarray(single[k])
+        worst[k] = float(np.max(np.abs(a - b) / np.abs(b)))
+        if len(b) != DDP_COMPARED or worst[k] > tol:
+            raise AssertionError(f"ddp-nccl {k}: DDP {a.tolist()} one process "
+                                 f"{b.tolist()} (rtol {tol})")
+    print(f"[ddp-nccl] world size 1 over {rank['backend']} on {rank['device']}, batch "
+          f"{DDP_BATCH}: {t['steps']} loader-fed steps in {t['wall_s']:.3f} s = "
+          f"{t['steps'] / t['wall_s']} steps/s (device-resident {resident_steps_per_s} "
+          f"steps/s at B = 1 in phase 7); waited on the loader {t['loader_wait_s']:.3f} s; "
+          f"peak mem GB {rank['peak_gb']:.2f}; moments launches a step {per_step}; wrote "
+          f"{rank['wrote']}; losses {t['losses']} grad norms {t['grad_norms']}; first "
+          f"{DDP_COMPARED} steps against one process: losses {single['losses']} grad norms "
+          f"{single['grad_norms']}, worst relative gap {worst} (rtol {DDP_LOSS_RTOL}, "
+          f"{DDP_GRAD_NORM_RTOL}) card={card}", flush=True)
+    return rank["launches"], t["steps"]
+
+
+def phase_ddp_gloo(card: str):
+    """Phase 17: 2 ranks over gloo sharing the one card, GLOO_STEPS f32
+    steps of ``SemAbs3DConfig()`` at 2 rows a rank whose halves keep
+    different point counts, against one process at B = 4 from the same
+    weights: loss, accuracy and grad norm at each step and every parameter
+    after the last within GLOO_RTOL, GLOO_ATOL."""
+    import torch
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        ranks = run_ranks("gloo", GLOO_WORLD, out_dir, share_card=True)
+        params = [torch.load(os.path.join(out_dir, f"gloo-rank{r}.pt"), weights_only=True)
+                  for r in range(GLOO_WORLD)]
+    torch.cuda.reset_peak_memory_stats()
+    stats, want, _, times = gloo_steps("cuda", data_parallel=False)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    worst_stat, worst_param = 0.0, 0.0
+    for rank, got in zip(ranks, params):
+        if rank["backend"] != "gloo" or rank["world"] != GLOO_WORLD:
+            raise AssertionError(f"ddp-gloo: {rank}")
+        per_step = {k: n / GLOO_STEPS for k, n in rank["launches"].items()}
+        if per_step != {"channel_moments": 33.0, "channel_moments_backward": 33.0}:
+            raise AssertionError(f"ddp-gloo rank {rank['rank']}: moments a step {per_step}")
+        for i, (a, b) in enumerate(zip(rank["stats"], stats)):
+            for k in ("loss", "accuracy", "grad_norm"):
+                gap = abs(a[k] - b[k])
+                worst_stat = max(worst_stat, gap / abs(b[k]))
+                if gap > GLOO_RTOL * abs(b[k]):
+                    raise AssertionError(f"ddp-gloo rank {rank['rank']} step {i + 1} {k}: "
+                                         f"{a[k]} against one process {b[k]}")
+        for k, v in want.items():
+            worst_param = max(worst_param, (got[k] - v).abs().max().item())
+            torch.testing.assert_close(got[k], v, rtol=GLOO_RTOL, atol=GLOO_ATOL, msg=k)
+    rank_gap = max((params[0][k] - params[1][k]).abs().max().item() for k in want)
+    print(f"[ddp-gloo] {GLOO_WORLD} ranks over gloo on one card, {GLOO_ROWS} rows a rank of "
+          f"{GLOO_PATCHES} patches, f32: step seconds {[r['step_s'] for r in ranks]} "
+          f"(one process {times}); rank peak mem GB {[r['peak_gb'] for r in ranks]} (one "
+          f"process {peak:.2f}); stats {ranks[0]['stats']} against one process {stats}: "
+          f"worst relative gap {worst_stat}; max|param diff| {worst_param} (rtol "
+          f"{GLOO_RTOL}, atol {GLOO_ATOL}); ranks' params apart by {rank_gap}; moments "
+          f"launches {[r['launches'] for r in ranks]} card={card}", flush=True)
+    return [r["launches"] for r in ranks]
+
+
+# ---------------------------------------------------------------------------
+# the ResNet tower and visual features (phase 18)
+# ---------------------------------------------------------------------------
+
+RN50_BATCH = 32      # encode_image's timed batch
+RN50_TIMED = 10      # timed encode_image calls
+GVF_CALLS = 20       # timed get_visual_feature calls a tower
+
+
+def phase_resnet(card: str):
+    """Phase 18: an RN50-shaped CLIP (``resnet_clip_state_dict`` seed 0,
+    loaded by ``convert.from_openai_state_dict``): ``encode_image`` on the
+    card in f32 and bf16 against f32 on the CPU at B = 4, images/s at
+    B = RN50_BATCH bf16; then ``get_visual_feature`` on the seeded 480x640
+    image for ViT-B/32 (random weights, seed 0) and RN50: f32 on the card
+    against the CPU, bf16 ms a call and K1 launches (12 a ViT call, through
+    ``fused_mha``; none for RN50). Tolerances: f32 within 5e-4 of the
+    features' largest magnitude; bf16 within 3x the CPU's own bf16-vs-f32
+    move of the same tower (max over the features). -> K1 launches of the
+    timed ViT calls."""
+    import copy
+
+    import torch
+
+    from semantic_abstraction_tpu_torch.clip import VIT_B_32, ClipSaliency, init_clip_params
+    from semantic_abstraction_tpu_torch.clip.convert import from_openai_state_dict
+    from semantic_abstraction_tpu_torch.clip.model import encode_image
+    from semantic_abstraction_tpu_torch.ops.fused_mha import fused_mha
+
+    t0 = time.perf_counter()
+    rn_cpu, cfg = from_openai_state_dict(resnet_clip_state_dict(0, **RN50), device="cpu")
+    vit_cpu = init_clip_params(0, VIT_B_32, device="cpu")
+    rn_card, vit_card = copy.deepcopy(rn_cpu).cuda(), copy.deepcopy(vit_cpu).cuda()
+    print(f"[resnet] RN50 ({sum(p.numel() for p in rn_cpu.visual.parameters())} visual "
+          f"parameters, {cfg.resnet_layers}, {cfg.vision_heads} heads) and ViT-B/32 built "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def check(label, got, ref32, ref16):
+        scale = ref32.abs().max().item()
+        err = (got.float().cpu() - ref32).abs().max().item()
+        move = None if ref16 is None else (ref16 - ref32).abs().max().item()
+        tol = 5e-4 * scale if move is None else 3 * move
+        if not (torch.isfinite(got).all() and err <= tol):
+            raise AssertionError(f"{label}: max err {err} > {tol} (scale {scale})")
+        return err, move
+
+    px = torch.as_tensor(np.random.RandomState(0).randn(4, 3, 224, 224).astype(np.float32))
+    with torch.no_grad():
+        cpu32 = encode_image(rn_cpu, px, cfg, torch.float32)
+        cpu16 = encode_image(rn_cpu, px, cfg, torch.bfloat16).float()
+        card32 = encode_image(rn_card, px.cuda(), cfg, torch.float32)
+        card16 = encode_image(rn_card, px.cuda(), cfg, torch.bfloat16)
+    err32, _ = check("rn50 encode_image f32", card32, cpu32, None)
+    err16, move = check("rn50 encode_image bf16", card16, cpu32, cpu16)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = torch.randn(RN50_BATCH, 3, 224, 224, device="cuda", generator=g)
+    with torch.no_grad():
+        for _ in range(2):
+            encode_image(rn_card, batch, cfg, torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(RN50_TIMED):
+            feats = encode_image(rn_card, batch, cfg, torch.bfloat16)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if feats.shape != (RN50_BATCH, 1024) or not torch.isfinite(feats).all():
+        raise AssertionError(f"rn50 features {tuple(feats.shape)}")
+    print(f"[resnet] RN50 encode_image card vs cpu (B = 4): f32 max err {err32}, bf16 max "
+          f"err {err16} (the CPU's bf16 move {move}, max|f| {cpu32.abs().max().item()}); "
+          f"bf16 B = {RN50_BATCH}: {RN50_BATCH * RN50_TIMED / wall} images/s, peak mem GB "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} card={card}", flush=True)
+
+    img = np.random.RandomState(0).randint(0, 255, (480, 640, 3), dtype=np.uint8)
+    vit_launches = 0
+    for name, cpu_m, card_m, c in (("vit-b/32", vit_cpu, vit_card, VIT_B_32),
+                                   ("rn50", rn_cpu, rn_card, cfg)):
+        ref32 = ClipSaliency(cpu_m, c, torch.float32).get_visual_feature(img)
+        ref16 = ClipSaliency(cpu_m, c, torch.bfloat16).get_visual_feature(img).float()
+        err32, _ = check(f"{name} get_visual_feature f32",
+                         ClipSaliency(card_m, c, torch.float32).get_visual_feature(img),
+                         ref32, None)
+        sal = ClipSaliency(card_m, c, torch.bfloat16)
+        sal.get_visual_feature(img)
+        torch.cuda.synchronize()
+        fused_mha.launches = 0
+        times = []
+        for _ in range(GVF_CALLS):
+            t0 = time.perf_counter()
+            feats = sal.get_visual_feature(img)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = fused_mha.launches
+        err16, move = check(f"{name} get_visual_feature bf16", feats, ref32, ref16)
+        want = 12 * GVF_CALLS if name == "vit-b/32" else 0
+        if launches != want:
+            raise AssertionError(f"{name} get_visual_feature: {launches} K1 launches in "
+                                 f"{GVF_CALLS} calls, not {want}")
+        if name == "vit-b/32":
+            vit_launches = launches
+        print(f"[visual-feature] {name} 480x640: {1e3 * sum(times) / GVF_CALLS:.3f} ms a "
+              f"call (bf16, min {1e3 * min(times):.3f}); K1 launches {launches} in "
+              f"{GVF_CALLS} calls; card vs cpu f32 max err {err32}, bf16 {err16} (the "
+              f"CPU's bf16 move {move}, max|f| {ref32.abs().max().item()}) card={card}",
+              flush=True)
+    return vit_launches
+
+
 def phase_main(card: str):
     """The image path at full width through the CLI's entry points."""
     import torch
@@ -1547,6 +2065,8 @@ def phase_profile(card: str, label: str, run, unprofiled_s: float, port_kernels,
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--rank-of"]:  # a rank of phase 16 or 17
+        return rank_main(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
@@ -1565,6 +2085,9 @@ def main() -> int:
     _build.build()
     print(f"[build] {list(_build.KERNELS)} built in "
           f"{time.perf_counter() - t0:.1f} s card={card}", flush=True)
+    print("[datagen] no phase: THOR datagen (datagen/, cli/generate_thor_data.py) runs on "
+          "the host only and needs ai2thor, which is not installed; the CPU tests hold it "
+          "to the JAX package's (tests/test_torch_datagen.py)", flush=True)
 
     from semantic_abstraction_tpu_torch.ops.cam_accumulate import cam_accumulate
     from semantic_abstraction_tpu_torch.ops.fused_mha import fused_mha
@@ -1609,6 +2132,10 @@ def main() -> int:
         for task in ("ovssc", "vool"):
             inference[task], _ = phase_inference(card, task, scene, os.path.join(tmp, "vis"))
             torch.cuda.empty_cache()
+    ddp_launches, ddp_steps = phase_ddp_loop(card, 1.0 / step_s)
+    gloo_launches = phase_ddp_gloo(card)
+    torch.cuda.empty_cache()
+    vf_launches = phase_resnet(card)
 
     # the kernels line. fused_mha: bf16 at the ViT-B/32 path's dominant
     # chunk (48 rows, T = 50), errors over every bf16 shape of the two
@@ -1632,6 +2159,7 @@ def main() -> int:
         return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
     main = pick(rows, dtype="bfloat16", B=48, T=50)
+    vf = pick(rows, dtype="bfloat16", B=1, T=50)
     minf = pick(mrows, dtype="bfloat16", B=1, S=128**3)
     minf_bf16 = [r for r in mrows if r["dtype"] == "bfloat16" and r["B"] == 1]
     vitl = pick(rows, dtype="bfloat16", B=48, T=257)
@@ -1658,6 +2186,9 @@ def main() -> int:
                    "per_scene": writer_launches / WRITER_SCENES},
         "ovssc_inference": {"launches": inference["ovssc"]["fused_mha"]},
         "vool_inference": {"launches": inference["vool"]["fused_mha"]},
+        # get_visual_feature at ViT-B/32 (phase 18): one image, B = 1, T = 50
+        "visual_feature": {"launches": vf_launches, "per_call": vf_launches / GVF_CALLS,
+                           "max_abs_err": vf["max_abs_err"], **timing(vf)},
     }, {
         "name": "cam_accumulate", "route": "cuda",
         "source": "semantic_abstraction_tpu_torch/ops/csrc/cam_accumulate.cu",
@@ -1702,6 +2233,15 @@ def main() -> int:
                                      for n, _ in loop.values()),
             "steps": {task: n for task, (_, n) in loop.items()},
         },
+        # phase 16: the loop under DDP, world size 1 over NCCL, B = 4
+        "ddp_nccl": {"launches": ddp_launches["channel_moments"],
+                     "backward_launches": ddp_launches["channel_moments_backward"],
+                     "steps": ddp_steps},
+        # phase 17: each of the 2 gloo ranks' GLOO_STEPS f32 steps at B = 2
+        "ddp_gloo": {"launches": [n["channel_moments"] for n in gloo_launches],
+                     "backward_launches": [n["channel_moments_backward"]
+                                           for n in gloo_launches],
+                     "steps": GLOO_STEPS},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

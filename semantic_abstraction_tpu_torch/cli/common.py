@@ -10,8 +10,10 @@ Not ported:
   kernels are cached by ``ops/_build.py`` under ``ops/.build/``.
 - ``--wire_dtype``: a narrowed host-to-device transfer for a remote TPU
   link; the card's PCIe copies f32 as it is.
-- ``--num_devices`` above 1: one process drives one card until data
-  parallelism (DDP) is ported; ``check_single_device`` refuses more.
+
+``--num_devices`` is the data-parallel group: one process a card, launched
+with ``python -m torch.distributed.run --nproc_per_node N``
+(``start_distributed``); 1 turns DDP off.
 
 An ``args.pkl`` written by the JAX package's CLIs (which holds
 ``wire_dtype`` and ``num_devices``) still loads: ``load_args`` returns its
@@ -36,7 +38,9 @@ def config_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_freq", type=int, default=1)
     p.add_argument("--eval_freq", type=int, default=5)
     p.add_argument("--num_devices", type=int, default=None,
-                   help="cards in the data-parallel group; only 1 until DDP is ported")
+                   help="cards in the data-parallel group (the world size when unset; "
+                        "1 turns DDP off); launch with python -m "
+                        "torch.distributed.run --nproc_per_node N")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the CPU only when asked for")
     p.add_argument("--seed", type=int, default=0)
@@ -102,14 +106,16 @@ def config_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_single_device(args) -> None:
-    """Refuse ``--num_devices`` above 1: the port drives one card until its
-    data parallelism (DDP) lands."""
-    if args.num_devices is not None and args.num_devices > 1:
-        raise SystemExit(
-            f"--num_devices {args.num_devices}: the port runs on one card; data "
-            "parallelism over several (DDP) is not ported yet"
-        )
+def start_distributed(args) -> None:
+    """What a CLI does first: join the process group of a multi-process
+    launch (``parallel.maybe_initialize_distributed``; ``args.device``
+    becomes this rank's card, ``cuda:LOCAL_RANK``) and check
+    ``--num_devices`` against the world size (``mesh_size_from_args``
+    raises on another value than 1 or the world size)."""
+    from ..parallel import maybe_initialize_distributed, mesh_size_from_args
+
+    args.device = str(maybe_initialize_distributed(args.device))
+    mesh_size_from_args(args)
 
 
 def save_args(log_dir: str, args) -> None:
@@ -140,11 +146,14 @@ def load_args(path: str) -> dict:
 
 
 def setup_logging():
+    """INFO on rank 0, warnings and errors only on the other ranks
+    (reference utils.py:139-142)."""
+    from ..parallel import rank
+
+    level = logging.INFO if rank() == 0 else logging.WARNING
     try:
         from rich.logging import RichHandler
 
-        logging.basicConfig(
-            level=logging.INFO, format="%(message)s", handlers=[RichHandler()]
-        )
+        logging.basicConfig(level=level, format="%(message)s", handlers=[RichHandler()])
     except ImportError:
-        logging.basicConfig(level=logging.INFO)
+        logging.basicConfig(level=level)

@@ -14,7 +14,11 @@ through a temporary file and ``os.replace``. Needs pandas.
   python -m semantic_abstraction_tpu_torch.cli.eval \
       --file_path DATASET_DIR --load CKPT --task ovssc|vool [--device cpu]
 
-Runs on ``cuda`` unless ``--device cpu`` is given; one card.
+Runs on ``cuda`` unless ``--device cpu`` is given. Under
+``python -m torch.distributed.run --nproc_per_node N`` with ``--num_devices
+N`` each rank evaluates its shard of the scenes (reference eval.py:57-59;
+the wrap-pad duplicates that equalize the shards are NaN'd), the frames
+are gathered, and rank 0 writes them.
 """
 from __future__ import annotations
 
@@ -40,7 +44,19 @@ def main(argv=None):
              "NYU tables need 60, reference summarize.py:216)",
     )
     args = parser.parse_args(argv)
-    common.check_single_device(args)
+    from ..parallel import destroy_distributed
+
+    try:
+        _run(parser, args)
+    finally:
+        destroy_distributed()
+
+
+def _run(parser, args):
+    from . import common
+    from ..parallel import data_parallel_from_args, rank, world_size
+
+    common.start_distributed(args)
     common.setup_logging()
     if not args.load:
         parser.error("--load is required (checkpoint to evaluate)")
@@ -103,27 +119,32 @@ def main(argv=None):
     cutoffs = eval_cutoffs_for(args.task, detailed=True)
     voxel_shapes = tuple((s, s, s) for s in (args.voxel_shapes or (32, 64)))
     stats_path = os.path.splitext(args.load)[0] + "_eval_stats.pkl"
+    # sharded evaluation: one scene a rank at a time
+    dp = data_parallel_from_args(args)
+    shards, shard_id = (world_size(), rank()) if dp else (1, 0)
     all_stats = []
     for split, ds in setup["datasets"].items():
         if split == "train":
             continue
         loader = DataLoader(
             ds, batch_size=1, num_workers=args.num_workers,
-            sampler=ShardedSampler(len(ds), shuffle=False, seed=args.seed),
+            sampler=ShardedSampler(len(ds), num_shards=shards, shard_id=shard_id,
+                                   shuffle=False, seed=args.seed),
         )
         means, detailed = run_eval_split(
             setup["state"], eval_step, loader, args.task, bounds, cutoffs,
             voxel_shapes=voxel_shapes, text_encoder=text_encoder,
-            max_batches=args.max_batches, device=setup["device"],
+            max_batches=args.max_batches, device=setup["device"], gather=dp,
         )
         detailed["split"] = split
         detailed["epoch"] = setup["start_epoch"]
         all_stats.append(detailed)
         logging.info("%s: %s", split, means)
-        tmp = stats_path + ".tmp"
-        pd.concat(all_stats, ignore_index=True).to_pickle(tmp)
-        os.replace(tmp, stats_path)
-        logging.info("dumped stats to %s", stats_path)
+        if rank() == 0:  # reference eval.py:90 rank guard
+            tmp = stats_path + ".tmp"
+            pd.concat(all_stats, ignore_index=True).to_pickle(tmp)
+            os.replace(tmp, stats_path)
+            logging.info("dumped stats to %s", stats_path)
 
 
 if __name__ == "__main__":

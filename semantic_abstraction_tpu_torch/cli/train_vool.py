@@ -4,7 +4,9 @@
       --file_path DATASET_DIR --log LOGDIR [--approach ...] [--clip-ckpt PATH] \
       [--device cpu]
 
-Runs on ``cuda`` unless ``--device cpu`` is given; one card.
+Runs on ``cuda`` unless ``--device cpu`` is given; over N cards with
+``python -m torch.distributed.run --nproc_per_node N`` and ``--num_devices
+N`` (DDP, one process a card).
 """
 from __future__ import annotations
 
@@ -51,19 +53,24 @@ def main(argv=None):
     )
     parser.add_argument("--clip-ckpt", type=str, default=None)
     args = parser.parse_args(argv)
-    common.check_single_device(args)
     if args.approach == "semantic_aware":
         args.network_inputs = ["rgb"]
     from ..clip.model import resolve_device
+    from ..parallel import destroy_distributed, rank
 
-    resolve_device(args.device)  # fail before anything is written
-    common.setup_logging()
-    common.save_args(args.log, args)
+    try:
+        common.start_distributed(args)
+        resolve_device(args.device)  # fail before anything is written
+        common.setup_logging()
+        if rank() == 0:
+            common.save_args(args.log, args)
 
-    from ..runtime.experiment import setup_experiment, train
+        from ..runtime.experiment import setup_experiment, train
 
-    setup = setup_experiment(args, task="vool", approach=args.approach)
-    train(args, setup, text_encoder=make_text_encoder(args))
+        setup = setup_experiment(args, task="vool", approach=args.approach)
+        train(args, setup, text_encoder=make_text_encoder(args))
+    finally:
+        destroy_distributed()
 
 
 if __name__ == "__main__":

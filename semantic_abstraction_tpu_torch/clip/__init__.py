@@ -8,6 +8,7 @@ from .model import (
     resolve_device,
     vit_forward,
 )
+from .resnet import ModifiedResNet, modified_resnet_forward
 from .tokenizer import ClipTokenizer, default_tokenizer, tokenize
 from .relevancy import gradcam, zeroshot_weights_from_features
 from .convert import (
@@ -38,6 +39,8 @@ __all__ = [
     "init_clip_params",
     "resolve_device",
     "vit_forward",
+    "ModifiedResNet",
+    "modified_resnet_forward",
     "ClipTokenizer",
     "default_tokenizer",
     "tokenize",

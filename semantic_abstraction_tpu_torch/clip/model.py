@@ -1,4 +1,4 @@
-"""CLIP (ViT image tower + text transformer) in PyTorch.
+"""CLIP (a ViT or ModifiedResNet image tower + text transformer) in PyTorch.
 
 Counterpart of ``semantic_abstraction_tpu/clip/model.py``. The parameters
 live in ``nn.Module``s laid out like the OpenAI CLIP state dict (so
@@ -16,6 +16,9 @@ for one:
   ``encode_image``.
 - Patch embedding is patchify + matmul, not a convolution (no cuDNN, no
   TF32).
+- ``encode_image`` dispatches on ``ClipConfig.vision_arch``: "vit", or
+  "resnet" for the ModifiedResNet tower of ``clip/resnet.py`` (visual
+  features only).
 """
 from __future__ import annotations
 
@@ -42,9 +45,16 @@ class ClipConfig:
     text_width: int = 512
     text_heads: int = 8
     text_layers: int = 12
+    # "vit" or "resnet" (the ModifiedResNet tower, clip/resnet.py);
+    # resnet_layers holds the bottlenecks of each stage (RN50: 3, 4, 6, 3)
+    vision_arch: str = "vit"
+    resnet_layers: Tuple[int, ...] = ()
 
     @property
     def vision_heads(self) -> int:
+        if self.vision_arch == "resnet":
+            # the attention pool's width is vision_width * 32 (reference :160-163)
+            return self.vision_width * 32 // 64
         return self.vision_width // 64
 
     @property
@@ -118,12 +128,20 @@ class VisionTransformer(nn.Module):
 
 
 class CLIP(nn.Module):
-    """ViT CLIP parameters. Build with ``init_clip_params`` or the loaders
-    in ``convert``; the forward functions below read the parameters."""
+    """CLIP parameters; ``visual`` is a ``VisionTransformer`` or, for
+    ``vision_arch="resnet"``, a ``ModifiedResNet``. Build with
+    ``init_clip_params`` (ViT) or the loaders in ``convert``; the forward
+    functions below read the parameters."""
 
     def __init__(self, cfg: ClipConfig):
         super().__init__()
-        self.visual = VisionTransformer(cfg)
+        if cfg.vision_arch == "resnet":
+            from .resnet import ModifiedResNet
+
+            self.visual = ModifiedResNet(cfg.resnet_layers, cfg.embed_dim, cfg.vision_heads,
+                                         cfg.image_resolution, cfg.vision_width)
+        else:
+            self.visual = VisionTransformer(cfg)
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.text_width)
         self.positional_embedding = nn.Parameter(
             torch.empty(cfg.context_length, cfg.text_width))
@@ -324,6 +342,17 @@ def encode_text(model: CLIP, tokens: torch.Tensor, cfg: ClipConfig,
 
 def encode_image(model: CLIP, pixels: torch.Tensor, cfg: ClipConfig,
                  compute_dtype=torch.float32, tile_attn_mask=None) -> torch.Tensor:
+    """(B, 3, H, W) pixels -> (B, E) image features, through the ViT (with
+    an optional additive (T, T) ``tile_attn_mask`` in every block) or the
+    ModifiedResNet."""
+    if cfg.vision_arch == "resnet":
+        if tile_attn_mask is not None:
+            raise ValueError(
+                "tile_attn_mask is transformer-only (reference "
+                "CLIP/clip/model.py:250-273 patches the Transformer tower)")
+        from .resnet import modified_resnet_forward
+
+        return modified_resnet_forward(model.visual, pixels, compute_dtype)
     feats, _ = vit_forward(
         model.visual, pixels, cfg, compute_dtype, attn_mask=tile_attn_mask,
         need_probs=False,
@@ -390,7 +419,12 @@ def init_clip_params(seed: int = 0, cfg: ClipConfig = VIT_B_32,
                      device=None) -> CLIP:
     """Random-init CLIP with the JAX package's weights for the same seed
     (reference init scales). Runs on ``cuda`` unless ``device`` says
-    otherwise."""
+    otherwise. ViT only, as in the JAX package: a ResNet tower comes from a
+    checkpoint (``convert.load_clip_checkpoint``)."""
     from .convert import from_jax_params
+
+    if cfg.vision_arch != "vit":
+        raise ValueError("init_clip_params draws a ViT tower only; load a ResNet "
+                         "CLIP from its checkpoint")
 
     return from_jax_params(_init_numpy_params(seed, cfg), cfg, device=device)

@@ -15,6 +15,9 @@ Counterpart of ``semantic_abstraction_tpu/clip/saliency.py``, run eagerly:
   configured crops (dead ones too), with duplicate tile sizes merged, cast
   to float16;
 - distractor labels stacked beside the labels and subtracted in f32.
+
+``get_visual_feature`` gives one image's CLIP features (ViT or ResNet
+tower) through the reference preprocess.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from ..ops.sampling import resize_matrix
-from .model import CLIP, ClipConfig, VIT_B_32, encode_text
+from .model import CLIP, ClipConfig, VIT_B_32, encode_image, encode_text
 from .relevancy import gradcam, zeroshot_weights_from_features
 from .tokenizer import tokenize
 
@@ -358,7 +361,7 @@ class ClipSaliency:
 
     @property
     def device(self) -> torch.device:
-        return self.model.visual.proj.device
+        return self.model.logit_scale.device
 
     def text_features(self, texts: Sequence[str]) -> torch.Tensor:
         """Raw (unnormalized) CLIP text features (N, E), f32."""
@@ -385,6 +388,11 @@ class ClipSaliency:
         """(H, W, 3) uint8 image + labels -> ((L, H, W) float16 relevancy,
         (L, E) prompt-ensembled text features). The jitter draws come from
         ``generator`` (a CPU ``torch.Generator``; seed 0 when None)."""
+        if self.cfg.vision_arch != "vit":
+            raise ValueError(
+                "relevancy extraction is transformer-only (the reference "
+                "ClipGradcam supports only ViT models, clip_gradcam.py:51-56); "
+                "ModifiedResNet checkpoints serve text/visual features only")
         if config is None:
             config = ours_config(min(img.shape[:2]))
         if generator is None:
@@ -409,6 +417,36 @@ class ClipSaliency:
         maps = (all_maps[:n_labels].float()
                 - all_maps[n_labels:].float().mean(dim=0)).half()
         return maps, label_feats
+
+    def get_visual_feature(self, rgb: np.ndarray, tile_attn_mask=None) -> torch.Tensor:
+        """(E,) CLIP image features of an (H, W, 3) uint8 image in the
+        extractor's compute dtype, optionally with an additive (T, T)
+        attention mask in every ViT block (reference
+        ClipWrapper.get_visual_feature, __init__.py:92-101).
+
+        The reference clip_preprocess: the SHORT side resized to the
+        model's resolution r with PIL's bicubic (the long side to
+        ``int(r * long / short)``, truncated), a CenterCrop at
+        ``round((o - r) / 2)``, a clip to [0, 1], the CLIP mean and std.
+        Without a mask the ViT blocks run the fused attention kernel."""
+        h, w = int(rgb.shape[0]), int(rgb.shape[1])
+        r = self.cfg.image_resolution
+        oh, ow = (int(r * h / w), r) if w <= h else (r, int(r * w / h))
+        dev = self.device
+        rm_h = torch.as_tensor(resize_matrix(h, oh, "bicubic_pil"), device=dev)
+        rm_w = torch.as_tensor(resize_matrix(w, ow, "bicubic_pil"), device=dev)
+        top, left = int(round((oh - r) / 2.0)), int(round((ow - r) / 2.0))
+        img = torch.as_tensor(np.ascontiguousarray(rgb.transpose(2, 0, 1)),
+                              device=dev).float()[None] / 255.0
+        img = torch.matmul(torch.matmul(rm_h, img), rm_w.t())  # rows, then columns
+        img = img[:, :, top:top + r, left:left + r].clamp(0.0, 1.0)
+        mean = torch.as_tensor(CLIP_PIXEL_MEAN, device=dev)[:, None, None]
+        std = torch.as_tensor(CLIP_PIXEL_STD, device=dev)[:, None, None]
+        mask = None if tile_attn_mask is None else torch.as_tensor(tile_attn_mask,
+                                                                   device=dev)
+        with torch.no_grad():
+            return encode_image(self.model, (img - mean) / std, self.cfg,
+                                self.compute_dtype, tile_attn_mask=mask)[0]
 
     def _images(self, img: np.ndarray, augmentations: int,
                 generator: torch.Generator) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Experiment orchestration on one card: setup, train/eval loops, logging,
-resume.
+"""Experiment orchestration: setup, train/eval loops, logging, resume, on
+one card or data-parallel over several.
 
 Counterpart of ``semantic_abstraction_tpu/runtime/experiment.py``
 (reference utils.py: setup_experiment :122-215, loop :383-471, train
@@ -11,10 +11,16 @@ the reference's swallow-and-continue split loop (a failing split is logged
 with its traceback and the loop goes on).
 
 What differs:
-- One process and one card (``cuda`` unless the caller asks for the CPU).
-  The mesh, ``--wire_dtype`` and the multi-process assembly
-  (``_local_rows``, ``_sync_padded_shapes``) are not ported; data
-  parallelism comes with DDP.
+- One process a card (``cuda`` unless the caller asks for the CPU). Data
+  parallelism is DDP over the default process group (``parallel/``), on
+  when a group exists and ``--num_devices`` is not 1: ``--batch_size`` is
+  per card, each rank loads its shard of the index space, the train step
+  goes through DDP, eval gathers every rank's frames and per-sample scalars
+  (``all_gather_host_objects``), and only rank 0 writes checkpoints,
+  ``detailed_stats.pkl`` and tensorboard scalars. The ranks run their
+  forwards apart, so JAX's multi-process assembly (``_local_rows``,
+  ``_sync_padded_shapes``) has nothing to do here: each rank's frame pairs
+  its own stats with its own meta columns. ``--wire_dtype`` is not ported.
 - The net is ``models.init_net(args.seed, cfg, device)``, drawn from a
   ``torch.Generator``: its weights differ from JAX's ``PRNGKey(seed)`` ones
   by design (tests carry JAX's across with ``models.from_jax_params``).
@@ -45,6 +51,7 @@ import numpy as np
 import torch
 
 from ..clip.model import resolve_device
+from .. import parallel
 from ..data import (
     DataConfig,
     DataLoader,
@@ -237,9 +244,10 @@ def build_setup(args, task: str, approach: str, datasets: Dict[str, object],
     cfg = model_cfg_from_args(task, approach, args)
     model = init_net(args.seed, cfg, device)
     logging.info("NUM PARAMS: %d", sum(p.numel() for p in model.parameters()))
-    # --batch_size is per device (the reference's batch-1-per-GPU regime);
-    # one card here, so it is the global batch
-    steps_per_epoch = max(1, len(datasets.get("train", [])) // max(args.batch_size, 1))
+    # --batch_size is per device (the reference's batch-1-per-GPU regime):
+    # the global batch scales with the data-parallel group
+    global_batch = max(args.batch_size, 1) * parallel.mesh_size_from_args(args)
+    steps_per_epoch = max(1, len(datasets.get("train", [])) // global_batch)
     tx = make_optimizer(
         lr=args.lr,
         weight_decay=args.weight_decay,
@@ -263,6 +271,7 @@ def build_setup(args, task: str, approach: str, datasets: Dict[str, object],
         "task": task,
         "approach": approach,
         "device": device,
+        "data_parallel": parallel.data_parallel_from_args(args),
     }
 
 
@@ -365,9 +374,11 @@ def eval_batches(state: TrainState, eval_step, loader: DataLoader, task: str,
 def run_eval_split(state: TrainState, eval_step, loader: DataLoader, task: str,
                    scene_bounds, cutoffs, voxel_shapes=((32, 32, 32),),
                    text_encoder=None, max_batches: Optional[int] = None,
-                   device=None):
+                   device=None, gather: bool = False):
     """Eval loop over a split -> (per-sample scalar means, detailed-stats
-    DataFrame)."""
+    DataFrame). With ``gather``, every rank's frame and per-sample scalars
+    are gathered first (reference all_gather_object and all_reduce,
+    utils.py:427-435), so every rank returns the global ones."""
     import pandas as pd
 
     frames = []
@@ -379,6 +390,11 @@ def run_eval_split(state: TrainState, eval_step, loader: DataLoader, task: str,
         frames.append(detailed_stats_frame(out["stats"], cutoffs,
                                            _eval_meta(out["batch"], task), out["pad"]))
     detailed = pd.concat(frames, ignore_index=True) if frames else pd.DataFrame()
+    if gather:
+        parts = [p for p in parallel.all_gather_host_objects(detailed) if len(p)]
+        detailed = pd.concat(parts, ignore_index=True) if parts else pd.DataFrame()
+        gathered = parallel.all_gather_host_objects(scalars)
+        scalars = {k: [x for part in gathered for x in part[k]] for k in scalars}
     means = {k: float(np.mean(v)) if v else float("nan") for k, v in scalars.items()}
     return means, detailed
 
@@ -431,18 +447,23 @@ def train(args, setup: dict, text_encoder: Optional[Callable] = None,
     splits every ``eval_freq``; tensorboard scalars; latest and periodic
     checkpoints; cumulative ``detailed_stats.pkl``. ``timings``, when given,
     gets one dict per train epoch: steps, wall seconds, seconds waiting on
-    the loader, seconds in ``device_batch`` (host clock), mean loss."""
+    the loader, seconds in ``device_batch`` (host clock), mean loss, and
+    each step's loss and grad norm. Data-parallel when
+    ``setup["data_parallel"]``: only rank 0 writes."""
     task = setup["task"]
     cfg = setup["cfg"]
     state = setup["state"]
     device = setup["device"]
+    dp = setup.get("data_parallel", False)
+    shards, shard_id = (parallel.world_size(), parallel.rank()) if dp else (1, 0)
+    writes = parallel.rank() == 0  # reference is_main_process() guards
     log_dir = log_dir or args.log
     os.makedirs(log_dir, exist_ok=True)
     compute_dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
     train_step = make_train_step(
         setup["forward_loss"], cfg, setup["tx"],
         balance_positive_negative=args.balance_positive_negative,
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, data_parallel=dp,
     )
     eval_step = make_eval_step(setup["forward_loss"], cfg, compute_dtype=compute_dtype)
 
@@ -450,7 +471,9 @@ def train(args, setup: dict, text_encoder: Optional[Callable] = None,
     try:
         from tensorboardX import SummaryWriter
 
-        writers = {k: SummaryWriter(os.path.join(log_dir, k)) for k in setup["datasets"]}
+        if writes:
+            writers = {k: SummaryWriter(os.path.join(log_dir, k))
+                       for k in setup["datasets"]}
     except ImportError:
         pass
     profile = _Profile()
@@ -471,7 +494,8 @@ def train(args, setup: dict, text_encoder: Optional[Callable] = None,
                 if not is_train and epoch % args.eval_freq != 0:
                     continue
                 try:
-                    sampler = ShardedSampler(len(ds), shuffle=is_train, seed=args.seed,
+                    sampler = ShardedSampler(len(ds), num_shards=shards, shard_id=shard_id,
+                                             shuffle=is_train, seed=args.seed,
                                              drop_last=is_train)
                     # ragged return_vis eval samples need static-shape
                     # padding whenever more than one is stacked
@@ -499,7 +523,7 @@ def train(args, setup: dict, text_encoder: Optional[Callable] = None,
                         means, detailed = run_eval_split(
                             state, eval_step, loader, task, bounds,
                             eval_cutoffs_for(task, False), text_encoder=text_encoder,
-                            max_batches=max_steps_per_epoch, device=device,
+                            max_batches=max_steps_per_epoch, device=device, gather=dp,
                         )
                         if len(detailed):
                             detailed["split"] = split
@@ -517,6 +541,9 @@ def train(args, setup: dict, text_encoder: Optional[Callable] = None,
                     profile.stop()
                     logging.exception("split %s failed; continuing", split)
                     continue
+            if not writes:
+                continue
+            # every rank writes through one fixed <path>.tmp: one writer
             save_checkpoint(os.path.join(log_dir, "latest.ckpt"), state, epoch + 1)
             if (epoch + 1) % args.save_freq == 0:
                 save_checkpoint(os.path.join(log_dir, f"ckpt_{epoch}.ckpt"), state,
@@ -541,13 +568,14 @@ def _train_epoch(state, train_step, loader, task, device, text_encoder, writer,
     The step's scalars stay on the device until a flush reads them back,
     every ``LOG_FLUSH`` steps and at the end of the epoch."""
     t_start = time.perf_counter()
-    losses, pending = [], []
+    losses, grad_norms, pending = [], [], []
     wait_s = h2d_s = 0.0
 
     def flush():
         for gs, st in pending:
             vals = {k: float(v) for k, v in st.items()}
             losses.append(vals["loss"])
+            grad_norms.append(vals["grad_norm"])
             if writer is not None:
                 for k, v in vals.items():
                     writer.add_scalar(k, v, gs)
@@ -577,5 +605,6 @@ def _train_epoch(state, train_step, loader, task, device, text_encoder, writer,
     it.close()  # an early stop releases the loader's workers
     record = {"steps": len(losses), "wall_s": time.perf_counter() - t_start,
               "loader_wait_s": wait_s, "device_batch_s": h2d_s,
-              "loss": float(np.mean(losses)) if losses else float("nan")}
+              "loss": float(np.mean(losses)) if losses else float("nan"),
+              "losses": losses, "grad_norms": grad_norms}
     return state, global_step, record

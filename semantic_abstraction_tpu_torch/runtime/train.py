@@ -1,7 +1,7 @@
-"""Single-card train and eval steps.
+"""Train and eval steps, on one card or data-parallel over several.
 
-Counterpart of ``semantic_abstraction_tpu/runtime/train.py`` without a
-mesh: one step is forward, backward, gradient clipping to global norm 2.0
+Counterpart of ``semantic_abstraction_tpu/runtime/train.py``: one step is
+forward, backward, gradient clipping to global norm 2.0
 (reference utils.py:413-421) and a LAMB update on the HF-style schedule
 (utils.py:260-274). The model's parameters stay f32; the forward runs in
 ``compute_dtype`` (bf16 on the card) and the loss in f32. The call shapes
@@ -18,6 +18,14 @@ the optimizer are mutable); the step returns it for the same call shape.
 The stats are 0-dim tensors on the model's device, read back only by the
 caller. A parameter the forward does not read gets no ``.grad``; LAMB
 takes it as a zero gradient, as JAX's ``value_and_grad`` gives it.
+
+``make_train_step(..., data_parallel=True)`` runs the step through
+``parallel.data_parallel`` (DDP over the default process group), each rank
+on its own rows of the global batch. The loss is then the one of the
+global batch: a masked mean (OVSSC's loss, every accuracy) takes its
+denominator over every rank's kept points, so the gradient DDP averages,
+the grad norm read after ``backward`` and the logged scalars are those of
+one process on the whole batch, whatever each rank keeps.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import dataclasses
 from typing import Callable, Iterable
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..models.lamb import Lamb
@@ -208,23 +217,66 @@ FORWARD_LOSS = {
 }
 
 
+# nets with parameters their forward never reads (the completion
+# decoder of SemAbsVOOL and ClipSpatialVOOL): DDP must look for them
+_UNREAD_PARAMETERS = (SemAbsVOOLConfig, ClipSpatialVOOLConfig)
+# the OVSSC nets, whose loss is a mean over the points not ignored; the
+# VOOL nets' loss is a mean over every point (a reference quirk)
+_MASKED_MEAN_LOSS = (SemAbs3DConfig, SemanticAwareOVSSCConfig)
+
+
+def _global_means(loss: torch.Tensor, aux: dict, masked_loss: bool):
+    """This rank's (loss, accuracy) rescaled so that their mean over the
+    ranks is the global batch's: a rank's masked sum over the global count,
+    times the world size. Returns them and the logged global values."""
+    world = dist.get_world_size()
+    kept = (~aux["ignore"]).sum()
+    n_loss = kept if masked_loss else torch.full_like(kept, aux["ignore"].numel())
+    local = torch.stack([n_loss, kept]).double()
+    total = local.clone()
+    dist.all_reduce(total)
+    scale = (local.clamp_min(1.0) / total.clamp_min(1.0) * world).float()
+    loss, accuracy = loss * scale[0], aux["accuracy"] * scale[1]
+    logged = torch.stack([loss.detach(), accuracy.detach()])
+    dist.all_reduce(logged)
+    return loss, logged / world
+
+
 def make_train_step(forward_loss: Callable, cfg, tx: Optimizer,
                     balance_positive_negative: bool = False,
-                    compute_dtype: torch.dtype = torch.bfloat16):
+                    compute_dtype: torch.dtype = torch.bfloat16,
+                    data_parallel: bool = False):
     """(state, batch) -> (state, {"loss", "accuracy", "grad_norm"}); the
-    grad norm is the one before clipping (reference utils.py:320-326)."""
+    grad norm is the one before clipping (reference utils.py:320-326). With
+    ``data_parallel`` the step runs under DDP over the default process
+    group (built at the first call, for the state's model) and ``batch`` is
+    this rank's rows."""
+    wrapped = {}
 
     def step_fn(state: TrainState, batch: dict):
         state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = forward_loss(state.model, cfg, batch,
-                                 balance_positive_negative, compute_dtype)
+        if data_parallel:
+            if wrapped.get("model") is not state.model:
+                from ..parallel import data_parallel as ddp
+
+                wrapped.update(model=state.model, ddp=ddp(
+                    state.model, forward_loss, cfg, balance_positive_negative,
+                    compute_dtype, isinstance(cfg, _UNREAD_PARAMETERS)))
+            loss, aux = wrapped["ddp"](batch)
+            loss, (logged_loss, accuracy) = _global_means(
+                loss, aux, isinstance(cfg, _MASKED_MEAN_LOSS))
+        else:
+            loss, aux = forward_loss(state.model, cfg, batch,
+                                     balance_positive_negative, compute_dtype)
+            logged_loss, accuracy = loss.detach(), aux["accuracy"]
         loss.backward()
+        # after backward: DDP has averaged the gradients over the ranks
         grads = [p.grad for p in state.model.parameters() if p.grad is not None]
         grad_norm = global_norm(grads)
         clip_by_global_norm_(grads, grad_norm, tx.grad_max_norm)
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach(), "accuracy": aux["accuracy"],
+        return state, {"loss": logged_loss, "accuracy": accuracy,
                        "grad_norm": grad_norm}
 
     return step_fn

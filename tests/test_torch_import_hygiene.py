@@ -32,7 +32,9 @@ def test_port_modules_are_found():
                  "runtime.checkpoint", "runtime.experiment", "native", "data",
                  "data.transforms", "data.hdf5", "data.datasets", "data.loader",
                  "cli.common", "cli.train_ovssc", "cli.train_vool", "cli.eval",
-                 "cli.summarize"):
+                 "cli.summarize", "parallel", "parallel.distributed", "clip.resnet",
+                 "datagen", "datagen.naming", "datagen.receptacles",
+                 "datagen.relations", "datagen.scene", "cli.generate_thor_data"):
         assert f"semantic_abstraction_tpu_torch.{name}" in mods
 
 
