@@ -10,9 +10,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    path's shapes, in f32 and bf16, and time kernel, plain version, the
    PyTorch library call (a yardstick only) and the bound: ``fused_mha`` at
    the ViT-B/32 path's tile chunks (T = 50), at get_visual_feature's one
-   image (B = 1, T = 50) and at ViT-L/14's T = 257 and 577, and (checked,
-   not timed) at B = 1 on every ragged edge of its
-   64-row and 64-key tiles up to its 2048-token bound; ``cam_accumulate``
+   image (B = 1, T = 50) and at ViT-L/14's T = 257 and 577 (each run twice:
+   equal bit for bit), and (checked, not timed) at B = 1 on every ragged
+   edge of its 64-row and 64-key tiles up to its 2048-token bound; the
+   bound of its f32 body and of ``cam_accumulate`` counts their f32
+   products as three TF32 products at the TF32 rate; ``cam_accumulate``
    at the ViT-B/32 and ViT-L/14 shapes of the multi-tail gradcam;
    ``channel_moments`` and its backward kernel at the 11 (C, S) shapes of
    the full-size UNet's GroupNorms, at B = 4 (OVSSC) and B = 8 (VOOL) (the
@@ -31,7 +33,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 4. run the relevancy path at full width: the ``image`` command's
    ``build_saliency`` + ``relevancy`` (ViT-B/32, random weights, bf16,
    "ours" crops on a seeded 480x640 image, the 9 headline labels), one
-   warm-up image, then timed images;
+   warm-up image, then timed images; then the same image with
+   ``--compute_dtype float32`` (K1's f32 body), one warm-up and one timed
+   image, its launches counted;
 5. profile one more image with ``torch.profiler`` (device time by kernel);
 6. the multi-tail path at full width: OpenAI ViT-L/14's shape (24 blocks
    of width 1024, patch 14, T = 257) with random weights, bf16, the CLI's
@@ -122,10 +126,12 @@ import time
 
 import numpy as np
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense bf16
-# tensor-core and f32 (non-tensor) FLOP/s
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s; dense FLOP/s
+# of the tensor cores in bf16 and in TF32 (495 TFLOP/s: the rate of the
+# kernels' f32 products, each taken as three TF32 products), and of f32
+# outside the tensor cores (67 TFLOP/s: elementwise and reduction work)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 HEADLINE_LABELS = [
     "basketball jersey", "nintendo switch", "television", "ping pong table",
     "vase", "fireplace", "abstract painting of a vespa", "carpet", "wall",
@@ -190,11 +196,16 @@ def time_ms(fn, iters: int = 100) -> float:
 
 def mha_bound(b: int, t: int, w: int, heads: int, dtype: str):
     """(least ms, "bytes" or "operations") for fused MHA: q, k, v read once
-    and out written once at the HBM rate, or 4*B*H*T*T*hd flops at the
-    dtype's peak, whichever is larger."""
+    and out written once at the HBM rate, or the products' flops on the
+    tensor cores, whichever is larger. The products are 4*B*H*T*T*hd flops:
+    in bf16 at the bf16 rate (989 TFLOP/s); in f32 three times that, as
+    three TF32 products each (the f32 body's 3xTF32), at the dense TF32
+    rate (495 TFLOP/s)."""
     elt = 2 if dtype == "bfloat16" else 4
     bytes_s = 4 * b * t * w * elt / HBM_BYTES_PER_S
-    flops_s = 4 * b * heads * t * t * (w // heads) / PEAK_FLOPS[dtype]
+    flops = 4 * b * heads * t * t * (w // heads)
+    flops_s = (flops / PEAK_FLOPS["bfloat16"] if dtype == "bfloat16"
+               else 3 * flops / PEAK_FLOPS["tf32"])
     return 1e3 * max(bytes_s, flops_s), ("bytes" if bytes_s >= flops_s else "operations")
 
 
@@ -215,6 +226,7 @@ def phase_kernel(card: str):
     # round to bf16 (1 ulp = 2^-8 relative), so 2 ulp of |out| <= 2
     tols = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-2)}
     rows = []
+    ragged = {}  # dtype -> largest error over the ragged token counts
     g = torch.Generator(device="cuda").manual_seed(0)
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         atol, rtol = tols[dname]
@@ -230,6 +242,8 @@ def phase_kernel(card: str):
             ok = torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
             if not ok:
                 raise AssertionError(f"fused_mha {dname} B={b} T={t}: max err {err}")
+            if not torch.equal(fused_mha(q, k, v, heads), out):
+                raise AssertionError(f"fused_mha {dname} B={b} T={t}: not deterministic")
             qh, kh, vh = (a.reshape(b, t, heads, w // heads).transpose(1, 2)
                           for a in (q, k, v))
             iters = 100 if t <= 64 else 20
@@ -243,7 +257,8 @@ def phase_kernel(card: str):
             rows.append(row)
             print(f"[kernel] fused_mha {json.dumps(row)} card={card}", flush=True)
             del qkv, q, k, v, qh, kh, vh, out, ref
-        # every ragged edge of the 64-row query and 64-key K/V tiles, one
+        # the ragged edges of both bodies' query and K/V tiles (bf16: 64
+        # rows, 64 keys; f32: 16-row tiles in 128-row CTAs, 32 keys), one
         # token, the first version's 256-token bound and the 2048-token bound
         for t in RAGGED_TOKENS:
             q, k, v = torch.randn(1, t, 3 * 768, device="cuda", generator=g).to(dtype).split(768, -1)
@@ -254,18 +269,23 @@ def phase_kernel(card: str):
                 raise AssertionError(f"fused_mha {dname} B=1 T={t}: max err {err}")
             print(f"[kernel] fused_mha {dname} B=1 T={t} max_abs_err {err} card={card}",
                   flush=True)
+            ragged[dname] = max(ragged.get(dname, 0.0), err)
             del q, k, v, out, ref
-    return rows
+    return rows, ragged
 
 
 def cam_bound(l: int, b: int, h: int, t: int, dtype: str):
     """(least ms, "bytes" or "operations") for one cam_accumulate step:
     grad and attn read once, R read once and out written once (f32) at the
-    HBM rate, or the flops at the f32 peak: 2*L*B*T^3 for the product and
-    3 an element of grad (product, ReLU, head sum)."""
+    HBM rate, or the operations: the f32 product's 2*L*B*T^3 flops as three
+    TF32 products (the kernel's 3xTF32) at the dense TF32 rate (495
+    TFLOP/s), and 3 flops an element of grad (product, ReLU, head sum) at
+    the f32 rate outside the tensor cores (67 TFLOP/s), which run beside
+    them."""
     elt = 2 if dtype == "bfloat16" else 4
     bytes_s = ((l * b * h + b * h) * t * t * elt + 2 * l * b * t * t * 4) / HBM_BYTES_PER_S
-    flops_s = (2 * l * b * t**3 + 3 * l * b * h * t * t) / PEAK_FLOPS["float32"]
+    flops_s = max(3 * 2 * l * b * t**3 / PEAK_FLOPS["tf32"],
+                  3 * l * b * h * t * t / PEAK_FLOPS["float32"])
     return 1e3 * max(bytes_s, flops_s), ("bytes" if bytes_s >= flops_s else "operations")
 
 
@@ -1941,7 +1961,34 @@ def phase_main(card: str):
           f"{launches} per image {launches['fused_mha'] / TIMED_IMAGES} "
           f"peak mem GB {torch.cuda.max_memory_allocated() / 1e9:.2f} "
           f"card={card}", flush=True)
-    return sal, img, args, launches, sum(times) / len(times)
+
+    # the same image with --compute_dtype float32: K1's f32 body on the path
+    args32 = cli.parser().parse_args(
+        ["image", "--random-weights", "--compute_dtype", "float32",
+         "--labels", *HEADLINE_LABELS])
+    sal32 = cli.build_saliency(args32)
+    t0 = time.perf_counter()
+    cli.relevancy(sal32, img, args32)
+    torch.cuda.synchronize()
+    warm32 = time.perf_counter() - t0
+    fused_mha.launches = 0
+    args32.seed = 1
+    t0 = time.perf_counter()
+    maps32 = cli.relevancy(sal32, img, args32)
+    torch.cuda.synchronize()
+    f32 = {"launches": fused_mha.launches, "seconds": time.perf_counter() - t0}
+    del sal32
+    if maps32.shape != (9, 480, 640):
+        raise AssertionError(f"f32 maps {tuple(maps32.shape)}")
+    if not torch.isfinite(maps32).all() or not (maps32 != 0).any():
+        raise AssertionError("f32 maps are not finite or all zero")
+    if f32["launches"] != launches["fused_mha"] / TIMED_IMAGES:
+        raise AssertionError(f"the f32 image launched fused_mha {f32['launches']} times, "
+                             f"the bf16 images {launches['fused_mha'] / TIMED_IMAGES} an image")
+    print(f"[main] f32 image: warm-up {warm32:.3f} s, timed {f32['seconds']:.3f} s, "
+          f"maps/s {9 / f32['seconds']}, fused_mha launches {f32['launches']} "
+          f"({maps32.dtype}) card={card}", flush=True)
+    return sal, img, args, launches, sum(times) / len(times), f32
 
 
 def phase_vitl(card: str):
@@ -2092,14 +2139,14 @@ def main() -> int:
     from semantic_abstraction_tpu_torch.ops.cam_accumulate import cam_accumulate
     from semantic_abstraction_tpu_torch.ops.fused_mha import fused_mha
 
-    rows = phase_kernel(card)
+    rows, ragged = phase_kernel(card)
     crows = phase_cam(card)
     mrows, brows = phase_moments(card)
     phase_small(card, "small", small_config(), 1, (fused_mha,))
     phase_small(card, "small-multitail", small_config(vision_layers=4, vision_patch_size=14),
                 0, (fused_mha, cam_accumulate))
     phase_small_ovssc(card)
-    sal, img, args, launches, image_s = phase_main(card)
+    sal, img, args, launches, image_s, f32_image = phase_main(card)
     phase_profile(card, "relevancy image", lambda: cli.relevancy(sal, img, args),
                   image_s, ("fused_mha_",))
     del sal
@@ -2163,6 +2210,8 @@ def main() -> int:
     minf = pick(mrows, dtype="bfloat16", B=1, S=128**3)
     minf_bf16 = [r for r in mrows if r["dtype"] == "bfloat16" and r["B"] == 1]
     vitl = pick(rows, dtype="bfloat16", B=48, T=257)
+    f32_main = pick(rows, dtype="float32", B=48, T=50)
+    f32_rows = [r for r in rows if r["dtype"] == "float32"]
     path_rows = [r for r in rows if r["dtype"] == "bfloat16"
                  and (r["B"], r["T"]) in ((12, 50), (42, 50), (45, 50), (48, 50), (48, 257))]
     cmain = pick(crows, dtype="bfloat16", T=257)
@@ -2189,6 +2238,13 @@ def main() -> int:
         # get_visual_feature at ViT-B/32 (phase 18): one image, B = 1, T = 50
         "visual_feature": {"launches": vf_launches, "per_call": vf_launches / GVF_CALLS,
                            "max_abs_err": vf["max_abs_err"], **timing(vf)},
+        # the f32 body: launches and seconds of phase 4's f32 ViT-B/32
+        # image, errors over phase 2's ten f32 shapes (and, apart, its twelve
+        # ragged token counts), the time at the dominant chunk (48, 50)
+        "float32": {"launches": f32_image["launches"], "image_s": f32_image["seconds"],
+                    "max_abs_err": max(r["max_abs_err"] for r in f32_rows),
+                    "max_rel_err": max(r["max_rel_err"] for r in f32_rows),
+                    "ragged_max_abs_err": ragged["float32"], **timing(f32_main)},
     }, {
         "name": "cam_accumulate", "route": "cuda",
         "source": "semantic_abstraction_tpu_torch/ops/csrc/cam_accumulate.cu",

@@ -8,9 +8,9 @@ round), each in its own process that builds that checkout's kernels, and
 times, in bf16 and f32:
 
 - ``fused_mha`` at the relevancy paths' shapes: q, k, v strided views of one
-  (B, T, 3W) projection; ViT-B/32's tile chunks (T = 50, W = 768, B = 12,
-  42, 45, 48) and ViT-L/14's chunk at 224 and 336 px (B = 48, W = 1024,
-  T = 257 and 577);
+  (B, T, 3W) projection; get_visual_feature's one image and ViT-B/32's tile
+  chunks (T = 50, W = 768, B = 1, 12, 42, 45, 48) and ViT-L/14's chunk at
+  224 and 336 px (B = 48, W = 1024, T = 257 and 577);
 - ``cam_accumulate`` at the multi-tail gradcam's shapes: L = 9 labels,
   B = 48 tiles, ViT-B/32 (H = 12, T = 50) and ViT-L/14 (H = 16, T = 257),
   a dense R, ReLU on.
@@ -65,8 +65,8 @@ def device_ms(fn, iters):
 g = torch.Generator(device="cuda").manual_seed(0)
 out = {}
 for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-    for b, t, w in ((12, 50, 768), (42, 50, 768), (45, 50, 768), (48, 50, 768),
-                    (48, 257, 1024), (48, 577, 1024)):
+    for b, t, w in ((1, 50, 768), (12, 50, 768), (42, 50, 768), (45, 50, 768),
+                    (48, 50, 768), (48, 257, 1024), (48, 577, 1024)):
         q, k, v = torch.randn(b, t, 3 * w, device="cuda", generator=g).to(dtype).split(w, -1)
         fn = lambda: fused_mha(q, k, v, w // 64)
         iters = 200 if t <= 64 else 20

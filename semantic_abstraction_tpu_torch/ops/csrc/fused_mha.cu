@@ -12,36 +12,47 @@
 // f32 logits, mha_reference scales q in the input type; at hd = 64 the scale
 // is 2^-3, exact either way, and this kernel scales the f32 logits.
 //
-// What bounds it: reading q, k, v and writing out once, 4*B*T*W*2 bytes in
-// bf16 (B = 48 tile rows: 14.7 MB at ViT-B/32's T = 50, W = 768, 4.4 us at
-// 3.35 TB/s; 101 MB at ViT-L/14's T = 257, W = 1024, 30 us; 227 MB at
-// T = 577, 68 us). The products are 4*B*H*T^2*64 flops: 13 GFLOP at T = 257
-// and 65 GFLOP at T = 577, 13 us and 66 us on bf16 tensor cores, but 0.19 ms
-// and 0.97 ms on f32 CUDA cores. So bf16 runs its products on tensor cores,
-// where they stay under the byte bound even at half rate; f32 keeps a
-// CUDA-core body (below the bf16 kernel's notes). Past the bytes, the
-// design's own costs are its two passes (S computed twice) and two
-// exponentials a logit on the MUFU unit; its measured times, several times
-// the byte bound at T >= 257, are in PERF.md.
+// What bounds it: reading q, k, v and writing out once, 4*B*T*W bytes of the
+// input type (B = 48 tile rows: in bf16 14.7 MB at ViT-B/32's T = 50,
+// W = 768, 4.4 us at 3.35 TB/s; 101 MB at ViT-L/14's T = 257, W = 1024,
+// 30 us; 227 MB at T = 577, 68 us; twice that in f32). The products are
+// 4*B*H*T^2*64 flops: 13 GFLOP at T = 257 and 65 GFLOP at T = 577, 13 us
+// and 66 us on bf16 tensor cores. Both bodies run them on tensor cores: bf16
+// directly, f32 as three TF32 products each (79 us and 0.40 ms at the dense
+// TF32 rate of 495 TFLOP/s, above the f32 byte bound of 60 us and 0.14 ms;
+// on f32 CUDA cores, 67 TFLOP/s, one product would take 0.19 ms and 0.97 ms).
+// mma.sync reaches about 315 TFLOP/s in TF32 and 630 in bf16 on the H100
+// (scripts/torch_mma_rate.py), which puts the f32 body's floor at 0.62 ms
+// at T = 577. Measured times are in PERF.md.
 //
-// bf16 design (fused_mha_tc_kernel). One CTA per (batch row, head, tile of
-// 64 query rows), 4 warps of 16 rows; the row tiles of one (b, h) are
-// adjacent in the grid, so their K and V reads meet in L2. Instructions:
-// mma.sync m16n8k16 (bf16 in, f32 accumulate), ldmatrix (.trans for V) and
-// 16-byte cp.async. wgmma and TMA were not taken: a warp's 16 query rows
-// against 64-key tiles are mma.sync's shape, the kernel is bound by bytes,
-// not by the tensor-core rate, and cp.async takes the strided q/k/v views
-// (row stride 3W, head offset 128 bytes: every row 16-byte aligned) with no
-// tensor map.
+// Both bodies: one CTA per (batch row, head, tile of query rows), 4 warps;
+// the row tiles of one (b, h) are adjacent in the grid, so their K and V
+// reads meet in L2. K and V go through shared memory by 16-byte cp.async in
+// a two-stage ring: the copy of tile s + 1 runs under the MMAs of tile s.
+// Instructions: mma.sync, cp.async. wgmma and TMA were not taken: a warp's
+// 16 or 32 query rows against a key tile are mma.sync's shape; cp.async
+// takes the strided q/k/v views (row stride 3W, head offset 128 bytes in
+// bf16, 256 in f32: every row 16-byte aligned) with no tensor map; and
+// wgmma takes tf32 operands only K-major from shared memory, which V in
+// P V (N-major) is not, so the f32 body would also need V transposed and
+// split in shared memory.
+// Ragged edges: K, V and q rows >= T are zero-filled (V's zeros meet p = 0);
+// key columns >= T are set to -inf (a zero-filled K row would give logit 0),
+// and 8-key blocks wholly past T are skipped; query rows >= T are computed
+// and not stored, and a warp whose rows are all >= T skips the arithmetic.
+// Shared memory does not grow with T. A row's result does not depend on
+// which CTA owns it, and no sum uses atomics: the kernels are deterministic.
+//
+// bf16 design (fused_mha_tc_kernel). 64 query rows a CTA, 16 a warp, 64-key
+// tiles. Instructions: mma.sync m16n8k16 (bf16 in, f32 accumulate) and
+// ldmatrix (.trans for V).
 // - q: staged once by cp.async, then held by each warp as A fragments in
 //   registers for the CTA's life.
-// - K and V: bf16 in shared memory, never widened, in 64-key tiles of rows
-//   padded to 72 elements (144 bytes: the 8 row addresses of an ldmatrix
-//   fall in 8 distinct 16-byte bank groups). A two-stage cp.async ring:
-//   the copy of step s + 1 runs under the MMAs of step s.
+// - K and V: bf16 in shared memory, never widened, in tiles of rows padded
+//   to 72 elements (144 bytes: the 8 row addresses of an ldmatrix fall in 8
+//   distinct 16-byte bank groups).
 // - Softmax at JAX's rounding point. Pass one walks the K tiles: S = q k^T
-//   by mma.sync in f32; key columns >= T are set to -inf (a zero-filled K
-//   row would give logit 0); the row max (quad shuffles: four lanes share a
+//   by mma.sync in f32; the row max (quad shuffles: four lanes share a
 //   row of the m16n8 accumulator) and an online-rescaled sum in f32, each
 //   exp(c s - c max) (c = hd^-0.5) taken as one FMA and one ex2.approx,
 //   2^(fma(s, c log2 e, -c log2 e max)). Pass two walks K and V tiles again,
@@ -55,28 +66,54 @@
 //   the first tensor-core version (an accurate expf and a division an
 //   element, in both passes); 2^x, one reciprocal a row and skipping 8-key
 //   blocks wholly past T took most of that away.
-// - Ragged edges: K, V and q rows >= T are zero-filled by cp.async (V's
-//   zeros meet p = 0); query rows >= T are computed and not stored, and a
-//   warp whose 16 rows are all >= T skips the arithmetic.
 // Shared memory: 5 tiles of 64 x 72 bf16 = 45 KB (q, and two stages of K
-// and V) at any T <= 2048; registers are capped at 128 so that 4 CTAs fit
-// an SM. Three or four stages, 3 CTAs an SM, and 128-row query tiles (half
-// the L2 reads of K and V) each measured slower at T = 257.
+// and V); registers are capped at 128 so that 4 CTAs fit an SM. Three or
+// four stages, 3 CTAs an SM, and 128-row query tiles (half the L2 reads of
+// K and V) each measured slower at T = 257.
 //
-// f32 design (fused_mha_kernel, unchanged from the CUDA-core version): one
-// block owns QROWS query rows of one (batch row, head) and keeps one f32
-// probability row of T floats for each; K and then V go through shared
-// memory in KTILE-key tiles. Pass one over the K tiles writes the scaled
-// logits into the rows (lane j of a warp takes keys j, j + 32 of a tile),
-// the softmax runs on each row in place (warp max and sum), and pass two
-// over the V tiles accumulates the rounded probabilities times V (lane d
-// takes output dims d, d + 32). Each warp owns four consecutive query rows
-// and q is staged transposed, so one float4 gives a dim of all four rows: a
-// loaded key value feeds four FMAs, and a loaded value row eight. Shared
-// memory: (64 * QROWS + QROWS * T + KTILE * 65) f32. Tile rows are padded to
-// hd + 1 floats so that lanes reading different keys hit different banks.
-// A row's result does not depend on T's split into tiles or on which block
-// owns the row. Moving f32 to 3xTF32 tensor cores is open work.
+// f32 design (fused_mha_tf32_kernel). 128 query rows a CTA, 32 a warp (two
+// m16 row tiles), 32-key tiles. Instructions: mma.sync m16n8k8 (tf32 in,
+// f32 accumulate).
+// - 3xTF32: each f32 operand x is split into big = tf32(x) and
+//   small = x - big, and small*big + big*small + big*big accumulate in f32
+//   (products of TF32 values are exact in f32), as in cam_accumulate.cu.
+//   The error is about 2^-21 of the products' magnitude, inside the 1e-4
+//   tolerance; one TF32 product (2^-11) is not. The split is three
+//   instructions (split_tf32); cvt.rna.tf32.f32 has no instruction of its
+//   own on sm_90 and a split by it costs several more, which the body feels
+//   (scripts/torch_fused_mha_sweep.py).
+// - One pass. At f32 the JAX rounding point (probs.astype(q.dtype)) is a
+//   no-op, so no second pass over S is needed: each K and V tile is read
+//   once. S = q k^T (3xTF32), keys >= T set to -inf, the running row max
+//   and sum rescaled (O too) when the max grows, p = exp(c s - c max) as
+//   2^(fma(...)) as in bf16, O += P V (3xTF32), and O times 1/sum once at
+//   the store.
+// - Fragments without shuffles. A k-step of 8 may take its 8 depth indices
+//   in any order, as long as A and B agree. For S, k-slots tq and tq + 4
+//   of lane (g, tq) take dims 2tq and 2tq + 1, so q's A fragment is one
+//   float2 of each of rows g, g + 8 and K's B fragment one 64-bit shared
+//   load. For P V, they take keys 2tq and 2tq + 1: exactly the columns of
+//   the S accumulator the lane holds, so S's accumulators are P's A
+//   fragments in place, and V's B fragment is V[2tq][g], V[2tq + 1][g].
+// - Two row tiles a warp: each split B fragment (of K or of V) feeds six
+//   MMAs, not three. The body is bound by instruction issue and latency,
+//   not by the tensor pipe (the sweep's variant with one MMA in place of
+//   three is far from three times faster), so halving the splits and loads
+//   a MMA is what counts.
+// - q: read once from global memory (float2 a lane), split, and kept as big
+//   and small A fragments in shared memory (64 KB a CTA), where only the
+//   lane that wrote them reads them, one 8-dim step at a time. In registers
+//   they would take 128 words and push the body past 255 into spills.
+// - K and V: f32 rows in shared memory, split at each use in registers (a
+//   split copy would double the shared-memory reads). K rows are padded to
+//   72 floats (the 64-bit loads of a half-warp cover 32 distinct banks), V
+//   rows to 68 (lanes (g, tq) read rows 2tq, 2tq + 1 at column g: 32
+//   distinct banks).
+// Shared memory: q's fragments and two stages of a K and a V tile, 99 KB at
+// any T <= 2048, 2 CTAs an SM; 205 registers, no spills. One row tile a
+// warp (3 CTAs an SM) is faster at T <= 257 and slower at T = 577; 64-key
+// tiles, three stages, and q in registers (raw or split) were slower
+// (scripts/torch_fused_mha_sweep.py, PERF.md).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -84,170 +121,44 @@
 
 namespace {
 
-constexpr int HD = 64;          // head dim the kernel takes
-constexpr int T_MAX = 2048;     // tokens the kernel takes (the f32 body's 152 KB)
+constexpr int HD = 64;          // head dim the kernels take
+constexpr int T_MAX = 2048;     // tokens the kernels take (the wrapper's MAX_TOKENS)
 
 // ---------------------------------------------------------------------------
-// f32: the CUDA-core body
+// Shared by both bodies
 // ---------------------------------------------------------------------------
 
-constexpr int HDP = HD + 1;     // padded shared-memory row
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int QROWS = 16;       // query rows of one block
-constexpr int QPW = QROWS / NWARPS;  // query rows of one warp (one float4)
-constexpr int KTILE = 64;       // keys of one staged K or V tile
-static_assert(QPW == 4, "a warp's query rows are one float4 of q transposed");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-// Round an f32 value to the storage type and back (probabilities are cast to
-// the input type before the value product).
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// 16-byte async copy to shared memory; src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-size_t smem_bytes(int t) {
-  // q rows + one probability row of t per query row + one K or V tile
-  return sizeof(float) * ((size_t)HD * QROWS + (size_t)QROWS * t + (size_t)KTILE * HDP);
+// 2^x (MUFU.EX2, relative error ~2^-22); exp(x) is taken as 2^(x log2 e)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
-
-// Softmax of one row of logits in place, rounded to T; `m` is this lane's
-// max over its keys j = lane, lane + 32, ...
-template <typename T>
-__device__ __forceinline__ void row_softmax(float* prow, int t_len, float m, int lane) {
-  m = warp_max(m);
-  float sum = 0.f;
-  for (int j = lane; j < t_len; j += 32) {
-    const float e = expf(prow[j] - m);
-    prow[j] = e;
-    sum += e;
-  }
-  sum = warp_sum(sum);
-  const float inv = 1.f / sum;
-  for (int j = lane; j < t_len; j += 32) prow[j] = round_to<T>(prow[j] * inv);
-  __syncwarp();
-}
-
-// Stage keys [j0, j0 + nk) of one head slice (k or v) as f32 rows of HDP.
-template <typename T>
-__device__ __forceinline__ void stage_tile(const T* src, long long stride, int j0, int nk,
-                                           float* dst) {
-  for (int i = threadIdx.x; i < nk * HD; i += NTHREADS) {
-    const int j = i / HD, d = i % HD;
-    dst[j * HDP + d] = to_f32(src[(long long)(j0 + j) * stride + d]);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-fused_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 int t_len, int width, int heads,
-                 long long sqb, long long sqt, long long skb, long long skt,
-                 long long svb, long long svt, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                  // HD x QROWS: q transposed
-  float* ps = qt + HD * QROWS;       // QROWS x t_len
-  float* tile = ps + QROWS * t_len;  // KTILE x HDP
-
-  const int groups = (t_len + QROWS - 1) / QROWS;
-  const int bh = blockIdx.x / groups;
-  const int r0 = (blockIdx.x % groups) * QROWS;
-  const int b = bh / heads;
-  const int h = bh % heads;
-  const int col = h * HD;
-  const int nrows = min(QROWS, t_len - r0);
-  const T* qb = q + b * sqb + col;
-  const T* kb = k + b * skb + col;
-  const T* vb = v + b * svb + col;
-
-  // rows past the end are zero (their logits are computed and dropped)
-  for (int i = threadIdx.x; i < QROWS * HD; i += NTHREADS) {
-    const int r = i / HD, d = i % HD;
-    qt[d * QROWS + r] = r < nrows ? to_f32(qb[(long long)(r0 + r) * sqt + d]) : 0.f;
-  }
-
-  // warp w owns rows QPW*w .. QPW*w + QPW - 1: one float4 of qt per dim
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int rw = warp * QPW;
-  float m[QPW];
-#pragma unroll
-  for (int i = 0; i < QPW; ++i) m[i] = -INFINITY;
-
-  // pass one: logits against each K tile; lane j holds key j of the tile
-  for (int j0 = 0; j0 < t_len; j0 += KTILE) {
-    const int nk = min(KTILE, t_len - j0);
-    __syncthreads();  // q staged; the previous tile read by every warp
-    stage_tile(kb, skt, j0, nk, tile);
-    __syncthreads();
-    for (int j = lane; j < nk; j += 32) {
-      const float* kr = tile + j * HDP;
-      float s[QPW] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 16
-      for (int d = 0; d < HD; ++d) {
-        const float kd = kr[d];
-        const float4 qv = *reinterpret_cast<const float4*>(qt + d * QROWS + rw);
-        s[0] = fmaf(qv.x, kd, s[0]);
-        s[1] = fmaf(qv.y, kd, s[1]);
-        s[2] = fmaf(qv.z, kd, s[2]);
-        s[3] = fmaf(qv.w, kd, s[3]);
-      }
-#pragma unroll
-      for (int i = 0; i < QPW; ++i) {
-        const float si = s[i] * scale;
-        ps[(rw + i) * t_len + j0 + j] = si;
-        m[i] = fmaxf(m[i], si);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < QPW; ++i) row_softmax<T>(ps + (rw + i) * t_len, t_len, m[i], lane);
-
-  // pass two: rounded probabilities times each V tile
-  float acc[QPW][2];
-#pragma unroll
-  for (int i = 0; i < QPW; ++i) acc[i][0] = acc[i][1] = 0.f;
-  for (int j0 = 0; j0 < t_len; j0 += KTILE) {
-    const int nk = min(KTILE, t_len - j0);
-    __syncthreads();
-    stage_tile(vb, svt, j0, nk, tile);
-    __syncthreads();
-    for (int j = 0; j < nk; ++j) {
-      const float v0 = tile[j * HDP + lane], v1 = tile[j * HDP + lane + 32];
-#pragma unroll
-      for (int i = 0; i < QPW; ++i) {
-        const float p = ps[(rw + i) * t_len + j0 + j];
-        acc[i][0] = fmaf(p, v0, acc[i][0]);
-        acc[i][1] = fmaf(p, v1, acc[i][1]);
-      }
-    }
-  }
-
-  T* ob = out + (long long)b * t_len * width + col;
-#pragma unroll
-  for (int i = 0; i < QPW; ++i) {
-    const int r = rw + i;
-    if (r >= nrows) continue;
-    ob[(long long)(r0 + r) * width + lane] = from_f32<T>(acc[i][0]);
-    ob[(long long)(r0 + r) * width + lane + 32] = from_f32<T>(acc[i][1]);
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync), bf16 tiles staged by cp.async
@@ -267,22 +178,6 @@ constexpr int MIN_BLOCKS = 4;         // CTAs an SM should hold (caps registers 
 constexpr size_t SMEM = sizeof(__nv_bfloat16) * TILE * (1 + 2 * STAGES);
 static_assert(ROWS == 16 * (NTHREADS / 32), "a warp owns 16 query rows");
 static_assert(KEYS == ROWS, "q and each K or V tile share one tile shape");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy to shared memory; src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -310,15 +205,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // Copy rows [j0, j0 + KEYS) of one head slice (row stride `stride`
 // elements) into a padded tile; rows at or past t_len are zero.
 __device__ __forceinline__ void stage(uint32_t dst, const __nv_bfloat16* src, long long stride,
@@ -331,13 +217,6 @@ __device__ __forceinline__ void stage(uint32_t dst, const __nv_bfloat16* src, lo
     cp_async16(dst + 2 * (r * SROW + c * 8), src + (ok ? (long long)(j0 + r) * stride : 0) + c * 8,
                ok ? 16 : 0);
   }
-}
-
-// 2^x (MUFU.EX2, relative error ~2^-22); exp(x) is taken as 2^(x log2 e)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
@@ -491,20 +370,290 @@ fused_mha_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// f32: tensor cores as 3xTF32 (mma.sync), f32 tiles staged by cp.async
+// ---------------------------------------------------------------------------
+namespace tf {
+
+constexpr int NWARPS = 4;
+constexpr int NTHREADS = 32 * NWARPS;
+constexpr int MT = 2;                 // m16 row tiles of one warp: 32 query rows
+constexpr int ROWS = 16 * MT * NWARPS;  // query rows of one CTA
+constexpr int KEYS = 32;              // keys of one staged K or V tile
+constexpr int KROW = HD + 8;          // padded K tile row (f32): 288 bytes
+constexpr int VROW = HD + 4;          // padded V tile row (f32): 272 bytes
+constexpr int NB = KEYS / 8;          // 8-key blocks of a logit tile
+constexpr int DB = HD / 8;            // 8-dim blocks of the output and of q
+constexpr int STAGES = 2;             // stages of the K/V ring
+constexpr int MIN_BLOCKS = 2;         // CTAs an SM should hold (caps registers at 255)
+constexpr int STAGE = KEYS * (KROW + VROW);                 // floats of one stage
+constexpr int QFRAG = NWARPS * MT * DB * 2 * 32 * 4;        // floats of q's split fragments
+constexpr size_t SMEM = sizeof(float) * (STAGE * STAGES + QFRAG);
+
+// x = big + small. big is x rounded to TF32, to nearest with ties away
+// (half of TF32's ulp added to the bits, the 13 bits TF32 drops cleared);
+// small = x - big is exact in f32. The tensor core reads the top 19 bits
+// of a .tf32 operand, so small goes in as it is and is cut to TF32 there.
+// Three integer or f32 instructions; cvt.rna.tf32.f32 is emulated by
+// several (see the header).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// d += a b: m16n8k8, tf32 operands, f32 accumulator
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[mt] += a[mt] b for the warp's MT row tiles, as three TF32 products
+// each: small(a) big(b) + big(a) small(b) + big(a) big(b). The f32 B
+// fragment (b0, b1) is split here, once for all MT tiles.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[MT][4], const uint32_t (&abig)[MT][4],
+                                           const uint32_t (&asmall)[MT][4], float b0, float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32(b0, bb0, bs0);
+  split_tf32(b1, bb1, bs1);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    mma_tf32(d[mt], asmall[mt], bb0, bb1);
+    mma_tf32(d[mt], abig[mt], bs0, bs1);
+    mma_tf32(d[mt], abig[mt], bb0, bb1);
+  }
+}
+
+// Copy rows [j0, j0 + KEYS) of one head slice (row stride `stride`
+// elements) into a tile of rows of `row` floats; rows at or past t_len are
+// zero.
+__device__ __forceinline__ void stage(uint32_t dst, int row, const float* src, long long stride,
+                                      int j0, int t_len) {
+#pragma unroll
+  for (int it = 0; it < KEYS * (HD / 4) / NTHREADS; ++it) {
+    const int i = threadIdx.x + it * NTHREADS;
+    const int r = i / (HD / 4), c = i % (HD / 4);
+    const bool ok = j0 + r < t_len;
+    cp_async16(dst + 4 * (r * row + c * 4), src + (ok ? (long long)(j0 + r) * stride : 0) + c * 4,
+               ok ? 16 : 0);
+  }
+}
+
+// One warp's step over one K and V tile (keys j0 .. j0 + KEYS - 1): S, the
+// online softmax, O += P V, for its MT row tiles. FULL: every key of the
+// tile is < t_len (all tiles but a ragged last one), so no key needs a
+// guard.
+template <bool FULL>
+__device__ __forceinline__ void tile_step(const float* kt, const float* vt, int j0, int t_len,
+                                          const uint4* qf, float (&o)[DB][MT][4],
+                                          float (&m_row)[MT][2], float (&l_row)[MT][2],
+                                          float scale_log2e) {
+  const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  // in the last tile, 8-key blocks wholly past T are skipped
+  auto in = [&](int nb) { return FULL || j0 + nb * 8 < t_len; };
+  // logits of the warp's rows against the tile's keys; q's split A
+  // fragments come from shared memory, one 8-dim step at a time
+  float sc[NB][MT][4];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      sc[nb][mt][0] = sc[nb][mt][1] = sc[nb][mt][2] = sc[nb][mt][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DB; ++ks) {
+    uint32_t qbig[MT][4], qsmall[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const uint4 bg = qf[((mt * DB + ks) * 2) * 32 + lane];
+      const uint4 sm = qf[((mt * DB + ks) * 2 + 1) * 32 + lane];
+      qbig[mt][0] = bg.x, qbig[mt][1] = bg.y, qbig[mt][2] = bg.z, qbig[mt][3] = bg.w;
+      qsmall[mt][0] = sm.x, qsmall[mt][1] = sm.y, qsmall[mt][2] = sm.z, qsmall[mt][3] = sm.w;
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      if (in(nb)) {
+        const float2 kv =
+            *reinterpret_cast<const float2*>(kt + (nb * 8 + g) * KROW + ks * 8 + 2 * tq);
+        mma_3xtf32(sc[nb], qbig, qsmall, kv.x, kv.y);
+      }
+  }
+  if (!FULL) {  // every key past T is -inf
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (j0 + nb * 8 + 2 * tq + (i & 1) >= t_len) sc[nb][mt][i] = -INFINITY;
+  }
+
+  // the running max and sum, O rescaled to the new max; sc becomes p
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        mx = fmaxf(mx, fmaxf(sc[nb][mt][2 * r], sc[nb][mt][2 * r + 1]));
+      const float m_new = fmaxf(m_row[mt][r], quad_max(mx));  // finite: key j0 < t_len
+      const float alpha = ex2((m_row[mt][r] - m_new) * scale_log2e);  // 0 on the first tile
+      const float mc = -m_new * scale_log2e;
+      float sum = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        float& p0 = sc[nb][mt][2 * r];
+        float& p1 = sc[nb][mt][2 * r + 1];
+        p0 = in(nb) ? ex2(fmaf(p0, scale_log2e, mc)) : 0.f;
+        p1 = in(nb) ? ex2(fmaf(p1, scale_log2e, mc)) : 0.f;
+        sum += p0 + p1;
+      }
+      l_row[mt][r] = l_row[mt][r] * alpha + sum;
+      m_row[mt][r] = m_new;
+#pragma unroll
+      for (int dn = 0; dn < DB; ++dn) {
+        o[dn][mt][2 * r] *= alpha;
+        o[dn][mt][2 * r + 1] *= alpha;
+      }
+    }
+
+  // O += P V: the accumulators of keys 8kk..8kk+7 are the A fragment of
+  // step kk (k-slots tq, tq + 4 = keys 2tq, 2tq + 1)
+#pragma unroll
+  for (int kk = 0; kk < NB; ++kk) {
+    if (!in(kk)) break;
+    uint32_t pbig[MT][4], psmall[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      split_tf32(sc[kk][mt][0], pbig[mt][0], psmall[mt][0]);  // row g, key 2tq
+      split_tf32(sc[kk][mt][2], pbig[mt][1], psmall[mt][1]);  // row g + 8, key 2tq
+      split_tf32(sc[kk][mt][1], pbig[mt][2], psmall[mt][2]);  // row g, key 2tq + 1
+      split_tf32(sc[kk][mt][3], pbig[mt][3], psmall[mt][3]);  // row g + 8, key 2tq + 1
+    }
+    const float* v0 = vt + (kk * 8 + 2 * tq) * VROW + g;
+#pragma unroll
+    for (int dn = 0; dn < DB; ++dn) mma_3xtf32(o[dn], pbig, psmall, v0[dn * 8], v0[VROW + dn * 8]);
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
+fused_mha_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      int t_len, int width, int heads,
+                      long long sqb, long long sqt, long long skb, long long skt,
+                      long long svb, long long svt, float scale_log2e) {
+  // STAGES stages of (K tile, V tile)
+  extern __shared__ __align__(128) float tf_smem[];
+
+  const int qtiles = (t_len + ROWS - 1) / ROWS;
+  const int bh = blockIdx.x / qtiles;
+  const int r0 = (blockIdx.x % qtiles) * ROWS;
+  const int b = bh / heads, h = bh % heads, col = h * HD;
+  const float* qb = q + b * sqb + col;
+  const float* kb = k + b * skb + col;
+  const float* vb = v + b * svb + col;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;  // accumulator row g (and g + 8), cols 2tq, 2tq + 1
+  const int w0 = r0 + warp * 16 * MT;     // the warp's first row
+  const bool live = w0 < t_len;           // warp-uniform: the warp has a row < T
+  const int ntiles = (t_len + KEYS - 1) / KEYS;
+  auto issue = [&](int s) {
+    const uint32_t kt = smem_u32(tf_smem + STAGE * (s % STAGES));
+    stage(kt, KROW, kb, skt, s * KEYS, t_len);
+    stage(kt + 4 * KEYS * KROW, VROW, vb, svt, s * KEYS, t_len);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ntiles) issue(s);
+    cp_async_commit();
+  }
+
+  // rows g and g + 8 of each of the warp's row tiles as A fragments, split
+  // once into shared memory, where only this lane reads them back: in 8-dim
+  // block ks, k-slots tq and tq + 4 are dims 2tq and 2tq + 1 (rows >= T
+  // zero)
+  uint4* qf = reinterpret_cast<uint4*>(tf_smem + STAGE * STAGES) + warp * MT * DB * 2 * 32;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int ra = w0 + mt * 16 + g, rb = ra + 8;
+#pragma unroll
+    for (int ks = 0; ks < DB; ++ks) {
+      const float2 zero = make_float2(0.f, 0.f);
+      const float2 xa = ra < t_len ? *reinterpret_cast<const float2*>(
+                                         qb + (long long)ra * sqt + ks * 8 + 2 * tq) : zero;
+      const float2 xb = rb < t_len ? *reinterpret_cast<const float2*>(
+                                         qb + (long long)rb * sqt + ks * 8 + 2 * tq) : zero;
+      uint4 bg, sm;
+      split_tf32(xa.x, bg.x, sm.x);
+      split_tf32(xb.x, bg.y, sm.y);
+      split_tf32(xa.y, bg.z, sm.z);
+      split_tf32(xb.y, bg.w, sm.w);
+      qf[((mt * DB + ks) * 2) * 32 + lane] = bg;
+      qf[((mt * DB + ks) * 2 + 1) * 32 + lane] = sm;
+    }
+  }
+
+  // exp(c s - c max) = 2^(fma(s, c', -c' max)), c' = c log2 e, for raw logits s
+  float m_row[MT][2];  // rows g, g + 8 of each row tile: running max of s
+  float l_row[MT][2];  // and this lane's share of the running sum
+  float o[DB][MT][4];  // unnormalised O
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m_row[mt][0] = m_row[mt][1] = -INFINITY;
+    l_row[mt][0] = l_row[mt][1] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DB; ++i) o[i][mt][0] = o[i][mt][1] = o[i][mt][2] = o[i][mt][3] = 0.f;
+  }
+
+  for (int s = 0; s < ntiles; ++s) {
+    if (s + STAGES - 1 < ntiles) issue(s + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();  // tile s has landed
+    __syncthreads();
+    if (live) {
+      const float* kt = tf_smem + STAGE * (s % STAGES);
+      const int j0 = s * KEYS;
+      if (j0 + KEYS <= t_len)
+        tile_step<true>(kt, kt + KEYS * KROW, j0, t_len, qf, o, m_row, l_row, scale_log2e);
+      else
+        tile_step<false>(kt, kt + KEYS * KROW, j0, t_len, qf, o, m_row, l_row, scale_log2e);
+    }
+    __syncthreads();  // this stage is refilled by the issue of the next step
+  }
+
+  float* ob = out + (long long)b * t_len * width + col;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float inv = 1.f / quad_sum(l_row[mt][r]);
+      const int row = w0 + mt * 16 + g + 8 * r;
+      if (row >= t_len) continue;
+      float2* orow = reinterpret_cast<float2*>(ob + (long long)row * width);
+#pragma unroll
+      for (int dn = 0; dn < DB; ++dn)
+        orow[dn * 4 + tq] = make_float2(o[dn][mt][2 * r] * inv, o[dn][mt][2 * r + 1] * inv);
+    }
+}
+
+}  // namespace tf
+
 int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
                int t_len, int width, int heads, long long sqb, long long sqt,
                long long skb, long long skt, long long svb, long long svt,
                cudaStream_t stream) {
-  const size_t smem = smem_bytes(t_len);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mha_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)b * heads * ((t_len + QROWS - 1) / QROWS);
+  const long long blocks = (long long)b * heads * ((t_len + tf::ROWS - 1) / tf::ROWS);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const float scale = 1.0f / sqrtf((float)HD);
-  fused_mha_kernel<float><<<(unsigned)blocks, NTHREADS, smem, stream>>>(
+  cudaError_t err = cudaFuncSetAttribute(
+      tf::fused_mha_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tf::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const float scale_log2e = 1.4426950408889634f / sqrtf((float)HD);
+  tf::fused_mha_tf32_kernel<<<(unsigned)blocks, tf::NTHREADS, tf::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), t_len, width, heads, sqb, sqt, skb, skt, svb, svt, scale);
+      static_cast<float*>(out), t_len, width, heads, sqb, sqt, skb, skt, svb, svt, scale_log2e);
   return (int)cudaGetLastError();
 }
 
@@ -512,9 +661,6 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int b,
                 int t_len, int width, int heads, long long sqb, long long sqt,
                 long long skb, long long skt, long long svb, long long svt,
                 cudaStream_t stream) {
-  // cp.async moves 16 bytes: every row of q, k, v must start 16-byte aligned
-  const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out;
-  if ((ptrs & 15) || ((sqb | sqt | skb | skt | svb | svt) & 7)) return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)b * heads * ((t_len + tc::ROWS - 1) / tc::ROWS);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -536,21 +682,24 @@ int fused_mha_head_dim() { return HD; }
 int fused_mha_max_tokens() { return T_MAX; }
 
 // q, k, v: (b, t_len, width) with unit stride on the last axis and the given
-// batch / token strides (elements); bf16 rows 16-byte aligned (pointers and
+// batch / token strides (elements); rows 16-byte aligned (pointers and
 // strides). out: contiguous (b, t_len, width). dtype: 0 = float32,
 // 1 = bfloat16. Returns a cudaError_t value (0 = ok).
 int fused_mha_launch(const void* q, const void* k, const void* v, void* out,
                      int b, int t_len, int width, int heads,
                      long long sqb, long long sqt, long long skb, long long skt,
                      long long svb, long long svt, int dtype, void* stream) {
-  if (width != heads * HD || t_len < 1 || t_len > T_MAX || b < 1)
+  if (width != heads * HD || t_len < 1 || t_len > T_MAX || b < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  // cp.async moves 16 bytes: every row of q, k, v must start 16-byte aligned
+  const long long per16 = dtype == 0 ? 4 : 8;  // elements in 16 bytes
+  const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out;
+  if ((ptrs & 15) || ((sqb | sqt | skb | skt | svb | svt) & (per16 - 1)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_f32(q, k, v, out, b, t_len, width, heads, sqb, sqt, skb, skt, svb, svt, s);
-  if (dtype == 1)
-    return launch_bf16(q, k, v, out, b, t_len, width, heads, sqb, sqt, skb, skt, svb, svt, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_bf16(q, k, v, out, b, t_len, width, heads, sqb, sqt, skb, skt, svb, svt, s);
 }
 
 }  // extern "C"

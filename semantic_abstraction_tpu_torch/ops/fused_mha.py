@@ -3,11 +3,15 @@ version and the autograd wrapper.
 
 Counterpart of ``semantic_abstraction_tpu/ops/pallas_kernels.py``'s
 ``fused_mha`` (Pallas body ``_fused_mha_kernel``). The kernel source is
-``csrc/fused_mha.cu`` (design and bound noted there). ``fused_mha`` takes
-(B, T, W) q, k, v, q unscaled, and returns (B, T, W):
+``csrc/fused_mha.cu`` (design and bound noted there): one tensor-core body
+for each dtype, bf16 products in bf16 and f32 products as three TF32
+products each, both walking K and V in 64-key tiles through 16-byte async
+copies. ``fused_mha`` takes (B, T, W) q, k, v, q unscaled, and returns
+(B, T, W):
 
 - a CUDA tensor launches the kernel, or raises on what the kernel does not
-  take (head dim, more than ``MAX_TOKENS`` tokens, dtype, layout);
+  take (head dim, more than ``MAX_TOKENS`` tokens, dtype, layout: rows that
+  are not 16-byte aligned, in either dtype);
 - a CPU tensor takes the plain version ``mha_reference``.
 
 The backward pass differentiates the plain version, as the JAX
@@ -25,7 +29,7 @@ from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 64  # the kernel's compiled head dim (fused_mha_head_dim())
-MAX_TOKENS = 2048  # the kernel's shared-memory bound (fused_mha_max_tokens())
+MAX_TOKENS = 2048  # the kernel's token bound (fused_mha_max_tokens())
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -65,10 +69,10 @@ def _check(q, k, v, num_heads):
     for a in (q, k, v):
         if a.stride(-1) != 1:
             raise ValueError("fused_mha needs unit stride on the last axis")
-        # bf16 rows go through 16-byte async copies
-        if a.dtype == torch.bfloat16 and (a.data_ptr() % 16 or a.stride(0) % 8
-                                          or a.stride(1) % 8):
-            raise ValueError(f"fused_mha in bfloat16 needs 16-byte aligned rows, got "
+        # rows go through 16-byte async copies
+        per16 = 16 // a.element_size()
+        if a.data_ptr() % 16 or a.stride(0) % per16 or a.stride(1) % per16:
+            raise ValueError(f"fused_mha needs 16-byte aligned rows, got {a.dtype} "
                              f"strides {a.stride()} at address {a.data_ptr():#x}")
 
 

@@ -71,7 +71,7 @@ def test_autograd_function_backward_matches_jax_vjp(monkeypatch):
     ((2, 50, 768), 4, torch.float32, ValueError),    # head_dim 192
     ((2, 50, 768), 7, torch.float32, ValueError),    # W % heads != 0
     ((2, 50, 768), 12, torch.float16, TypeError),    # dtype
-    ((1, 2049, 128), 2, torch.float32, ValueError),  # above the smem bound
+    ((1, 2049, 128), 2, torch.float32, ValueError),  # above the token bound
 ])
 def test_kernel_checks_reject_unsupported(shape, heads, dtype, err):
     a = torch.zeros(shape, dtype=dtype)
@@ -83,3 +83,22 @@ def test_kernel_checks_reject_strided_last_axis():
     a = torch.zeros(2, 50, 1536)[..., ::2]
     with pytest.raises(ValueError):
         fm._check(a, a, a, 12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["row stride", "start"])
+def test_kernel_checks_reject_rows_off_16_bytes(dtype, kind):
+    """Both bodies copy q, k and v rows 16 bytes at a time: a row stride or
+    a start that is not a multiple of 16 bytes raises, in f32 as in bf16."""
+    a = (torch.zeros(2, 50, 770, dtype=dtype)[..., :768] if kind == "row stride"
+         else torch.zeros(2, 50, 776, dtype=dtype)[..., 2:770])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fm._check(a, a, a, 12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_checks_take_the_paths_qkv_views(dtype):
+    """q, k, v as views of one (B, T, 3W) projection, as the ViT blocks
+    pass them, are aligned in both dtypes."""
+    q, k, v = torch.zeros(4, 50, 3 * 768, dtype=dtype).split(768, dim=-1)
+    fm._check(q, k, v, 12)

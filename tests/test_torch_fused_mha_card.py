@@ -6,7 +6,8 @@ it runs on a machine with the card and no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_fused_mha_card.py
 
-Tolerances: f32 atol=rtol=1e-4 (sums in another order than cuBLAS); bf16
+Tolerances: f32 atol=rtol=1e-4 (each product as three TF32 products,
+about 2^-21 of its magnitude, and sums in another order than cuBLAS); bf16
 atol=2e-2, rtol=1e-2 (the probs and the output round to bf16, 1 ulp = 2^-8
 relative, on outputs of magnitude <= 2; the tensor-core sums run in another
 order than cuBLAS's).
@@ -42,7 +43,8 @@ def _qkv_views(device, b, t, w, dtype, seed):
 # ViT-B/32 tile chunks of the main path (T = 50: 12, 42, 45, 48 rows) and
 # the batches 32, 64, 90; ViT-B/16 (197); ViT-L/14 at 224 and 336 px (257,
 # 577) at its width of 16 heads; and at B = 1, every ragged edge of the
-# 64-row query tiles and 64-key K/V tiles (1, 16, 17, 63, 64, 65), the first
+# query and K/V tiles (1, 16, 17, 63, 64, 65, 256, 257: bf16 tiles of 64 rows
+# and 64 keys, f32 row tiles of 16 in CTAs of 128 and 32 keys), the first
 # version's 256-token bound and the 2048-token bound
 PATH_SHAPES = [(b, 50, 768) for b in (12, 32, 42, 45, 48, 64, 90)] + [
     (8, 197, 768), (48, 257, 1024), (48, 577, 1024)]
@@ -88,12 +90,23 @@ def test_kernel_backward_is_the_plain_versions(cuda):
 @pytest.mark.parametrize("shape,heads,dtype,err", [
     ((2, 50, 768), 4, torch.float32, ValueError),    # head_dim 192
     ((2, 50, 768), 12, torch.float16, TypeError),    # dtype
-    ((2, 2049, 768), 12, torch.float32, ValueError),  # above the smem bound
+    ((2, 2049, 768), 12, torch.float32, ValueError),  # above the token bound
     ((2, 50, 772), 12, torch.bfloat16, ValueError),  # bf16 rows not 16-byte aligned
+    ((2, 50, 770), 12, torch.float32, ValueError),   # f32 rows not 16-byte aligned
 ])
 def test_kernel_raises_on_what_it_does_not_take(cuda, shape, heads, dtype, err):
     a = torch.zeros(shape, dtype=dtype, device=cuda)[..., :768]
     before = fm.fused_mha.launches
     with pytest.raises(err):
         fm.fused_mha(a, a, a, heads)
+    assert fm.fused_mha.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_raises_on_rows_that_start_off_16_bytes(cuda, dtype):
+    a = torch.zeros((2, 50, 776), dtype=dtype, device=cuda)[..., 2:770]
+    before = fm.fused_mha.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fm.fused_mha(a, a, a, 12)
     assert fm.fused_mha.launches == before

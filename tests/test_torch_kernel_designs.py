@@ -1,18 +1,25 @@
-"""The arithmetic of the two tensor-core kernels, modelled in plain torch on
-the CPU and held against the JAX package's references.
+"""The arithmetic of the tensor-core kernels, modelled in plain torch on the
+CPU and held against the JAX package's references.
 
-``csrc/fused_mha.cu`` (bf16) and ``csrc/cam_accumulate.cu`` run on the card
-only. What they compute differs from their plain versions in the order and
-the precision of the sums, and that is what these models repeat, step by
-step, so that the designs' numerics are pinned here:
+``csrc/fused_mha.cu`` (bf16 and f32) and ``csrc/cam_accumulate.cu`` run on
+the card only. What they compute differs from their plain versions in the
+order and the precision of the sums, and that is what these models repeat,
+step by step, so that the designs' numerics are pinned here:
 
-- fused_mha: 64-key tiles; raw logits in f32 from bf16 products; keys past
+- fused_mha, bf16: 64-key tiles; raw logits in f32 from bf16 products; keys past
   T set to -inf; pass one takes the row max and an online-rescaled sum of
   exp(c s - c max) = 2^(c' s - c' max) (c = hd^-0.5, c' = c log2 e); pass
   two forms the normalised
   probabilities, rounds them to bf16 and accumulates P V in f32 tile by
   tile; the output is rounded to bf16 once. Tolerance: the card test's bf16
   atol 2e-2, rtol 1e-2.
+- fused_mha, f32: one walk over 32-key tiles; S = q k^T and O += P V each
+  as three TF32 products (below; the small parts cut to TF32, not rounded);
+  keys past T set to -inf; the running row
+  max and sum, with the sum and O rescaled by 2^(c' (m_old - m_new)) when
+  the max grows; O times 1/sum once at the end. Tolerance: the card test's
+  f32 atol and rtol 1e-4. One TF32 product, or a walk that does not
+  rescale, does not hold it.
 - cam_accumulate: the product cam @ R as three TF32 products (each f32
   operand split into big = tf32(x), small = tf32(x - big); small*big +
   big*small + big*big). Products of TF32 values are exact in f32, so an f32
@@ -32,7 +39,8 @@ from semantic_abstraction_tpu.ops.pallas_kernels import (
     mha_reference as jax_mha_reference,
 )
 
-KEYS = 64  # keys of one K/V tile in fused_mha.cu
+KEYS = 64  # keys of one K/V tile of fused_mha.cu's bf16 body
+KEYS_F32 = 32  # keys of one K/V tile of its f32 body
 BF16 = dict(atol=2e-2, rtol=1e-2)
 
 
@@ -98,6 +106,99 @@ def split_tf32(x: torch.Tensor):
     return big, tf32(x - big)
 
 
+def split_tf32_cut(x: torch.Tensor):
+    """fused_mha.cu's f32 split: big = tf32(x) as above, and small = x - big
+    cut to TF32 (the low 13 bits cleared: the tensor core reads only the
+    top 19 bits of a .tf32 operand)."""
+    big = tf32(x)
+    small = ((x - big).contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return big, small
+
+
+def tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """a @ b as fused_mha.cu takes it in f32: small(a) big(b) + big(a)
+    small(b) + big(a) big(b), or the one big(a) big(b) with passes=1."""
+    (ab, asm), (bb, bsm) = split_tf32_cut(a), split_tf32_cut(b)
+    prod = torch.matmul(ab, bb)
+    if passes == 3:
+        prod = torch.matmul(asm, bb) + torch.matmul(ab, bsm) + prod
+    return prod
+
+
+def tile_walk_mha_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                      passes: int = 3, rescale: bool = True) -> torch.Tensor:
+    """fused_mha.cu's f32 arithmetic on (B, T, W) f32 q, k, v; with
+    rescale=False the walk never rescales the running sum and O."""
+    b, t, w = q.shape
+    hd = w // heads
+
+    def to_heads(a):
+        return a.reshape(b, t, heads, hd).transpose(1, 2)
+
+    qh, kh, vh = to_heads(q), to_heads(k), to_heads(v)
+    ntiles = -(-t // KEYS_F32)
+    pad = ntiles * KEYS_F32 - t
+    kh = torch.nn.functional.pad(kh, (0, 0, 0, pad))  # zero-filled rows past T
+    vh = torch.nn.functional.pad(vh, (0, 0, 0, pad))
+    c = torch.tensor(math.log2(math.e), dtype=torch.float32) / math.sqrt(hd)
+    live = torch.arange(ntiles * KEYS_F32) < t
+    m = torch.full((b, heads, t), -math.inf)
+    total = torch.zeros((b, heads, t))
+    out = torch.zeros((b, heads, t, hd))
+    for j in range(ntiles):
+        sl = slice(j * KEYS_F32, (j + 1) * KEYS_F32)
+        s = tf32_product(qh, kh[:, :, sl].transpose(-1, -2), passes)
+        s = s.masked_fill(~live[sl], -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2((m - m_new) * c) if rescale else torch.ones_like(m)
+        p = torch.exp2(s * c - (m_new * c)[..., None])
+        total = total * alpha + p.sum(-1)
+        out = out * alpha[..., None] + tf32_product(p, vh[:, :, sl], passes)
+        m = m_new
+    out = out * (1.0 / total)[..., None]
+    return out.transpose(1, 2).reshape(b, t, w)
+
+
+F32 = dict(atol=1e-4, rtol=1e-4)
+# chip_smoke.py's ragged token counts (every edge of the query and key
+# tiles up to the 2048-token bound), at B = 1 and a narrow width; and the
+# relevancy paths' shapes (ViT-B/32 at T = 50, ViT-L/14 at T = 257 and 577)
+# cut to small B
+RAGGED_TOKENS = (1, 16, 17, 50, 63, 64, 65, 197, 256, 257, 577, 2048)
+F32_PATH_SHAPES = [(2, 50, 768), (2, 257, 1024), (1, 577, 1024)]
+
+
+def f32_case(b, t, w):
+    rs = np.random.RandomState(1000 + t)
+    q, k, v = (rs.randn(b, t, w).astype(np.float32) for _ in range(3))
+    want = np.asarray(jax_mha_reference(*(jnp.asarray(a) for a in (q, k, v)), w // 64))
+    return [torch.as_tensor(a) for a in (q, k, v)], torch.as_tensor(np.array(want))
+
+
+@pytest.mark.parametrize("b,t,w", [(1, t, 128) for t in RAGGED_TOKENS] + F32_PATH_SHAPES)
+def test_fused_mha_f32_tile_walk_matches_jax_reference(b, t, w):
+    (q, k, v), want = f32_case(b, t, w)
+    torch.testing.assert_close(tile_walk_mha_f32(q, k, v, w // 64), want, **F32)
+
+
+@pytest.mark.parametrize("b,t,w", [(1, 50, 128)] + F32_PATH_SHAPES)
+def test_one_tf32_product_breaks_the_f32_mha_tolerance(b, t, w):
+    """Why the f32 body takes three products: big*big alone misses 1e-4."""
+    (q, k, v), want = f32_case(b, t, w)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(tile_walk_mha_f32(q, k, v, w // 64, passes=1), want, **F32)
+
+
+@pytest.mark.parametrize("b,t,w", [(1, 257, 128), (1, 2048, 128)] + F32_PATH_SHAPES[1:])
+def test_a_walk_without_the_rescale_breaks_the_f32_mha_tolerance(b, t, w):
+    """Past one key tile the running max grows, and the sum and O must
+    follow it."""
+    (q, k, v), want = f32_case(b, t, w)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(tile_walk_mha_f32(q, k, v, w // 64, rescale=False), want,
+                                   **F32)
+
+
 def cam_of(grad, attn, positive):
     cam = grad.float() * attn[None].float()
     if positive:
@@ -156,6 +257,15 @@ def test_split_tf32_is_exact_to_22_bits():
     big, small = split_tf32(x)
     assert torch.equal(tf32(big), big) and torch.equal(tf32(small), small)
     assert ((big + small - x).abs() <= 2.0**-21 * x.abs()).all()
+
+
+def test_cut_split_tf32_is_exact_to_21_bits():
+    """fused_mha's split: a small part cut, not rounded, to TF32 loses at
+    most one more bit."""
+    x = torch.as_tensor(np.random.RandomState(1).randn(4096).astype(np.float32))
+    big, small = split_tf32_cut(x)
+    assert torch.equal(tf32(big), big) and torch.equal(tf32(small), small)
+    assert ((big + small - x).abs() <= 2.0**-20 * x.abs()).all()
 
 
 @pytest.mark.parametrize("positive", [True, False])
