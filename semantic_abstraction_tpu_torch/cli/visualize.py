@@ -37,20 +37,21 @@ bfloat16. The frustum test runs on the device in float64, in the order of
 bit for bit the host's. ``cmd_ovssc`` and ``cmd_vool`` return what they
 computed, and take a ``timings`` dict that, when given, receives the
 seconds of each stage (the device is synchronized at each stage's end).
+Each stage is the span ``sa.visualize.<stage>`` (``trace.span``).
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
 import logging
 import os
 import pickle
-import time
 from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from .. import trace
 
 CHUNK = 2**18
 
@@ -289,23 +290,18 @@ def frustum_mask(points: torch.Tensor, depth_shape, cam_pose, cam_intr) -> torch
 
 
 class _Stages:
-    """``with stages("name"):`` adds the block's seconds to ``timings[name]``
-    when a ``timings`` dict is given, synchronizing the device at the
-    block's end; otherwise it does nothing."""
+    """``with stages("name"):`` is the span ``sa.visualize.name``
+    (``trace.span``). When a ``timings`` dict is given it also adds the
+    block's seconds to ``timings[name]``, synchronizing the device at the
+    block's end (``trace.timed``)."""
 
     def __init__(self, device: torch.device, timings: Optional[dict]):
         self.device, self.timings = device, timings
 
-    @contextlib.contextmanager
     def __call__(self, name: str):
         if self.timings is None:
-            yield
-            return
-        t0 = time.perf_counter()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.timings[name] = self.timings.get(name, 0.0) + time.perf_counter() - t0
+            return trace.span("sa.visualize." + name)
+        return trace.timed("sa.visualize." + name, self.timings, name, sync=self.device)
 
 
 def _compute_dtype(args):

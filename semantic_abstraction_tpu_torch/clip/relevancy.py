@@ -19,11 +19,16 @@ zero ``eps``, so that d(logit)/d(eps) == d(logit)/d(probs).
 
 Output: (num_labels, num_tiles, g, g) f32, g = sqrt(tokens - 1), the
 CLS-row relevancy over image patches.
+
+Stage spans (``trace.span``): ``sa.relevancy.head`` around the head scan,
+``sa.relevancy.tail`` around the rest (the tail blocks, the batched
+``autograd.grad``, the cam; ``cam_accumulate`` on the general path).
 """
 from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..ops.cam_accumulate import cam_accumulate
 from .model import (
     ClipConfig,
@@ -73,10 +78,10 @@ def _label_cotangents(zeroshot_weights: torch.Tensor, b: int) -> torch.Tensor:
     return (100.0 * zw)[:, None, :].expand(zw.shape[0], b, zw.shape[1])
 
 
-def _gradcam_single_tail(visual, tiles, zeroshot_weights, cfg: ClipConfig,
-                         num_layers: int, positive_attn_only: bool,
+def _gradcam_single_tail(visual, x_mid, zeroshot_weights, cfg: ClipConfig,
+                         n_head: int, positive_attn_only: bool,
                          compute_dtype) -> torch.Tensor:
-    """Exact fast path for one tail block.
+    """Exact fast path for one tail block, from the head's output ``x_mid``.
 
     With one tail block, R = I + mean_heads(relu(grad * attn)) and the
     output is R[:, 0, 1:]: only the CLS row of d(logit)/d(probs) matters,
@@ -85,11 +90,9 @@ def _gradcam_single_tail(visual, tiles, zeroshot_weights, cfg: ClipConfig,
     (W,)-sized gradient through the MLP/LN/proj chain, and
     d(logit_l)/d(probs[h, 0, k]) = <(g_a W_out^T)_h, v[h, k]>.
     """
-    n_head = num_layers + 1
     block = visual.transformer.resblocks[n_head]
     heads = cfg.vision_heads
     with torch.no_grad():
-        x_mid = _vit_head(visual, tiles, cfg, compute_dtype, n_head)
         b, t, w = x_mid.shape
         hd = w // heads
         q, k, v = _qkv(block, _ln(block.ln_1, x_mid)).chunk(3, dim=-1)
@@ -138,17 +141,28 @@ def gradcam(visual, tiles: torch.Tensor, zeroshot_weights: torch.Tensor,
     n_tail = cfg.vision_layers - n_head
     if n_tail < 1:
         raise ValueError("num_layers leaves no tail blocks to interpret")
-    if n_tail == 1 and not force_general:
-        return _gradcam_single_tail(visual, tiles, zeroshot_weights, cfg,
-                                    num_layers, positive_attn_only, compute_dtype)
-    b = tiles.shape[0]
+    with torch.no_grad(), trace.span("sa.relevancy.head"):
+        x_mid = _vit_head(visual, tiles, cfg, compute_dtype, n_head)
+    # the tail's span also holds its function's return
+    with trace.span("sa.relevancy.tail"):
+        if n_tail == 1 and not force_general:
+            return _gradcam_single_tail(visual, x_mid, zeroshot_weights, cfg, n_head,
+                                        positive_attn_only, compute_dtype)
+        return _gradcam_general_tail(visual, x_mid, zeroshot_weights, cfg, n_head,
+                                     n_tail, positive_attn_only, compute_dtype)
+
+
+def _gradcam_general_tail(visual, x_mid, zeroshot_weights, cfg: ClipConfig,
+                          n_head: int, n_tail: int, positive_attn_only: bool,
+                          compute_dtype) -> torch.Tensor:
+    """Every tail block from the head's output ``x_mid``: one batched
+    backward over the labels, then R accumulated block by block."""
+    b = x_mid.shape[0]
     h_heads = cfg.vision_heads
     t = cfg.vision_tokens
-    with torch.no_grad():
-        x_mid = _vit_head(visual, tiles, cfg, compute_dtype, n_head)
     with torch.enable_grad():
         eps = [torch.zeros((b, h_heads, t, t), dtype=compute_dtype,
-                           device=tiles.device, requires_grad=True)
+                           device=x_mid.device, requires_grad=True)
                for _ in range(n_tail)]
         feats, probs = _vit_tail(visual, x_mid, cfg, compute_dtype, n_head, eps)
         grads = torch.autograd.grad(
@@ -159,7 +173,7 @@ def gradcam(visual, tiles: torch.Tensor, zeroshot_weights: torch.Tensor,
         num_labels = zeroshot_weights.shape[1]
         # the first R is the identity expanded with stride 0 over (L, B): the
         # kernel reads R through its strides, so it is never materialized
-        eye = torch.eye(t, dtype=torch.float32, device=tiles.device)
+        eye = torch.eye(t, dtype=torch.float32, device=x_mid.device)
         r_mat = eye.expand(num_labels, b, t, t)
         for j in range(n_tail):
             r_mat = cam_accumulate(grads[j], probs[j], r_mat, positive_attn_only)

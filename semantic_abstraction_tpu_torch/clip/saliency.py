@@ -18,6 +18,15 @@ Counterpart of ``semantic_abstraction_tpu/clip/saliency.py``, run eagerly:
 
 ``get_visual_feature`` gives one image's CLIP features (ViT or ResNet
 tower) through the reference preprocess.
+
+Stage spans (``trace.span``; nothing unless the torch profiler is on):
+``sa.relevancy.image`` around ``get_clip_saliency``, and within it, every
+launch in one of ``sa.relevancy.text`` (the zeroshot weights),
+``.images`` (upload and jitter), ``.plan`` (the crop plan; a scale's
+chunking, index, offset and count arrays and their uploads), ``.tiles``
+(``extract_tiles``, the flip), ``.head`` and ``.tail``
+(``clip/relevancy.py``) and ``.canvas`` (flip average, overlap-add,
+normalisation, merge, mean, cast, distractor subtraction).
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..ops.sampling import resize_matrix
 from .model import CLIP, ClipConfig, VIT_B_32, encode_image, encode_text
 from .relevancy import gradcam, zeroshot_weights_from_features
@@ -45,8 +55,10 @@ def gradcam_label_chunked(visual, tiles, zw, prompt_batch_size, **kw):
     l = zw.shape[1]
     if l <= prompt_batch_size:
         return gradcam(visual, tiles, zw, **kw)
-    return torch.cat([gradcam(visual, tiles, zw[:, i:i + prompt_batch_size], **kw)
-                      for i in range(0, l, prompt_batch_size)], dim=0)
+    parts = [gradcam(visual, tiles, zw[:, i:i + prompt_batch_size], **kw)
+             for i in range(0, l, prompt_batch_size)]
+    with trace.span("sa.relevancy.tail"):
+        return torch.cat(parts, dim=0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -388,35 +400,38 @@ class ClipSaliency:
         """(H, W, 3) uint8 image + labels -> ((L, H, W) float16 relevancy,
         (L, E) prompt-ensembled text features). The jitter draws come from
         ``generator`` (a CPU ``torch.Generator``; seed 0 when None)."""
-        if self.cfg.vision_arch != "vit":
-            raise ValueError(
-                "relevancy extraction is transformer-only (the reference "
-                "ClipGradcam supports only ViT models, clip_gradcam.py:51-56); "
-                "ModifiedResNet checkpoints serve text/visual features only")
-        if config is None:
-            config = ours_config(min(img.shape[:2]))
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        if config.imagenet_prompt_ensemble:
-            prompts = IMAGENET_TEMPLATES
-        zw = self.zeroshot_weights(list(text_labels), list(prompts))
-        n_labels = zw.shape[1]
-        label_feats = zw.t()
-        distractor_labels = tuple(distractor_labels) + tuple(
-            d for d in config.distractor_labels if d not in set(distractor_labels)
-        )
-        extra = [d for d in distractor_labels if d not in set(text_labels)]
-        if not extra:
-            return self._saliency_convolve(img, zw, config, generator), label_feats
-        # one shared pass: each label's gradcam is independent, so the
-        # distractor columns ride beside the labels
-        dzw = self.zeroshot_weights(extra, list(prompts))
-        all_maps = self._saliency_convolve(
-            img, torch.cat([zw, dzw], dim=1), config, generator)
-        # subtract in f32: differencing nearly-equal f16 maps loses precision
-        maps = (all_maps[:n_labels].float()
-                - all_maps[n_labels:].float().mean(dim=0)).half()
-        return maps, label_feats
+        with trace.span("sa.relevancy.image"):
+            if self.cfg.vision_arch != "vit":
+                raise ValueError(
+                    "relevancy extraction is transformer-only (the reference "
+                    "ClipGradcam supports only ViT models, clip_gradcam.py:51-56); "
+                    "ModifiedResNet checkpoints serve text/visual features only")
+            if config is None:
+                config = ours_config(min(img.shape[:2]))
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            if config.imagenet_prompt_ensemble:
+                prompts = IMAGENET_TEMPLATES
+            with trace.span("sa.relevancy.text"):
+                zw = self.zeroshot_weights(list(text_labels), list(prompts))
+            n_labels = zw.shape[1]
+            label_feats = zw.t()
+            distractor_labels = tuple(distractor_labels) + tuple(
+                d for d in config.distractor_labels if d not in set(distractor_labels)
+            )
+            extra = [d for d in distractor_labels if d not in set(text_labels)]
+            if not extra:
+                return self._saliency_convolve(img, zw, config, generator), label_feats
+            # one shared pass: each label's gradcam is independent, so the
+            # distractor columns ride beside the labels
+            with trace.span("sa.relevancy.text"):
+                both = torch.cat([zw, self.zeroshot_weights(extra, list(prompts))], dim=1)
+            all_maps = self._saliency_convolve(img, both, config, generator)
+            with trace.span("sa.relevancy.canvas"):
+                # subtract in f32: differencing nearly-equal f16 maps loses precision
+                maps = (all_maps[:n_labels].float()
+                        - all_maps[n_labels:].float().mean(dim=0)).half()
+            return maps, label_feats
 
     def get_visual_feature(self, rgb: np.ndarray, tile_attn_mask=None) -> torch.Tensor:
         """(E,) CLIP image features of an (H, W, 3) uint8 image in the
@@ -461,66 +476,74 @@ class ClipSaliency:
                       plan: ScalePlan, config: SaliencyConfig) -> torch.Tensor:
         """One scale: chunked tiles -> gradcam (+ flip average) ->
         overlap-add canvas divided by the plan's count."""
-        n_images, _, h, w = images.shape
-        t_count = plan.offsets.shape[0]
-        n = n_images * t_count
-        bs = _chunk_size(n, self.tile_batch_size)
-        pad = (-n) % bs
-        img_idx = np.concatenate([np.arange(n) // t_count,
-                                  np.zeros(pad, np.int64)])
-        offs = np.concatenate([np.tile(plan.offsets, (n_images, 1)),
-                               np.zeros((pad, 2), np.int32)]).astype(np.int64)
-        img_idx = torch.as_tensor(img_idx, device=self.device)
-        offs = torch.as_tensor(offs, device=self.device)
-        kw = dict(prompt_batch_size=self.prompt_batch_size, cfg=self.cfg,
-                  num_layers=self.num_layers,
-                  positive_attn_only=config.positive_attn_only,
-                  compute_dtype=self.compute_dtype)
+        with trace.span("sa.relevancy.plan"):
+            n_images, _, h, w = images.shape
+            t_count = plan.offsets.shape[0]
+            n = n_images * t_count
+            bs = _chunk_size(n, self.tile_batch_size)
+            pad = (-n) % bs
+            img_idx = np.concatenate([np.arange(n) // t_count,
+                                      np.zeros(pad, np.int64)])
+            offs = np.concatenate([np.tile(plan.offsets, (n_images, 1)),
+                                   np.zeros((pad, 2), np.int32)]).astype(np.int64)
+            img_idx = torch.as_tensor(img_idx, device=self.device)
+            offs = torch.as_tensor(offs, device=self.device)
+            count = torch.as_tensor(plan.count, device=self.device)
+            kw = dict(prompt_batch_size=self.prompt_batch_size, cfg=self.cfg,
+                      num_layers=self.num_layers,
+                      positive_attn_only=config.positive_attn_only,
+                      compute_dtype=self.compute_dtype)
         rels = []
         for c in range(0, n + pad, bs):
-            tiles = extract_tiles(images, img_idx[c:c + bs], offs[c:c + bs],
-                                  plan.tile_size, self.cfg.image_resolution)
+            with trace.span("sa.relevancy.tiles"):
+                tiles = extract_tiles(images, img_idx[c:c + bs], offs[c:c + bs],
+                                      plan.tile_size, self.cfg.image_resolution)
             rel = gradcam_label_chunked(self.model.visual, tiles, zw, **kw)
             if config.horizontal_flipping:
-                rel_f = gradcam_label_chunked(
-                    self.model.visual, tiles.flip(-1), zw, **kw)
-                rel = (rel + rel_f.flip(-1)) / 2.0
+                with trace.span("sa.relevancy.tiles"):
+                    flipped = tiles.flip(-1)
+                rel_f = gradcam_label_chunked(self.model.visual, flipped, zw, **kw)
+                with trace.span("sa.relevancy.canvas"):
+                    rel = (rel + rel_f.flip(-1)) / 2.0
             rels.append(rel)  # (L, bs, g, g)
-        rel = torch.cat(rels, dim=1)[:, :n]
-        canvas = _accumulate_body(rel, plan, (h, w), n_images)
-        return canvas / torch.as_tensor(plan.count, device=self.device)[None]
+        with trace.span("sa.relevancy.canvas"):
+            rel = torch.cat(rels, dim=1)[:, :n]
+            canvas = _accumulate_body(rel, plan, (h, w), n_images)
+            return canvas / count[None]
 
     def _saliency_convolve(self, img: np.ndarray, zw: torch.Tensor,
                            config: SaliencyConfig,
                            generator: torch.Generator) -> torch.Tensor:
         h, w = img.shape[:2]
-        n_images = 1 + config.augmentations
-        plans = tile_plan((h, w), config.crops, n_images)
-        live = [p for p in plans if p.offsets.shape[0] > 0]
+        with trace.span("sa.relevancy.plan"):
+            plans = tile_plan((h, w), config.crops, 1 + config.augmentations)
+            live = [p for p in plans if p.offsets.shape[0] > 0]
         if not live:
             raise ValueError(
                 f"no crop in the saliency config fits a {h}x{w} image "
                 f"(tile sizes {[p.tile_size for p in plans]})"
             )
-        images = self._images(img, config.augmentations, generator)
+        with trace.span("sa.relevancy.images"):
+            images = self._images(img, config.augmentations, generator)
         by_size: dict = {}
         for plan in live:
             cv = self._scale_canvas(images, zw, plan, config)
             by_size.setdefault(plan.tile_size, []).append((plan, cv))
-        merged = []
-        for items in by_size.values():
-            if len(items) == 1:
-                merged.append(items[0][1])
-                continue
-            # duplicate tile sizes share one canvas and count (the reference
-            # keys both by tile size): un-normalize, sum, renormalize by the
-            # shared count (1e-5 seeded once, not per crop)
-            s = sum(cv * torch.as_tensor(p.count, device=self.device)[None]
-                    for p, cv in items)
-            shared = (sum(p.count for p, _ in items)
-                      - (len(items) - 1) * np.float32(1e-5))
-            merged.append(s / torch.as_tensor(shared, device=self.device)[None])
-        # divide by the unique tile sizes of ALL configured crops: sizes
-        # whose crops fit no tile still count (reference quirk)
-        n_unique = len({p.tile_size for p in plans})
-        return (sum(merged) / n_unique).half()
+        with trace.span("sa.relevancy.canvas"):
+            merged = []
+            for items in by_size.values():
+                if len(items) == 1:
+                    merged.append(items[0][1])
+                    continue
+                # duplicate tile sizes share one canvas and count (the reference
+                # keys both by tile size): un-normalize, sum, renormalize by the
+                # shared count (1e-5 seeded once, not per crop)
+                s = sum(cv * torch.as_tensor(p.count, device=self.device)[None]
+                        for p, cv in items)
+                shared = (sum(p.count for p, _ in items)
+                          - (len(items) - 1) * np.float32(1e-5))
+                merged.append(s / torch.as_tensor(shared, device=self.device)[None])
+            # divide by the unique tile sizes of ALL configured crops: sizes
+            # whose crops fit no tile still count (reference quirk)
+            n_unique = len({p.tile_size for p in plans})
+            return (sum(merged) / n_unique).half()

@@ -29,9 +29,14 @@ What differs:
   order, so nothing waits on the host.
 - The train loop keeps each step's loss, accuracy and grad norm on the
   device and reads them back every ``LOG_FLUSH`` steps (one sync per
-  flush), and times on the host clock how long it waited for the loader
-  and how long ``device_batch`` took (logged per epoch, and appended to
-  ``timings`` when the caller passes a list).
+  flush). It times on the host clock how long it waited in the loader's
+  ``next`` for the batches it got (``loader_wait_s``; the last ``next``,
+  which finds the loader exhausted, is not counted) and how long the host
+  took to enqueue ``device_batch``'s copies (``device_batch_s``, not the
+  copies: they run on the stream behind it), logged per epoch and
+  appended to ``timings`` when the caller passes a list. The two are the
+  spans ``sa.loop.wait`` and ``sa.loop.device_batch``; under the torch
+  profiler the latter's stream time is the copy itself.
 - pandas is imported only where a frame is built or read (the eval splits
   and ``detailed_stats.pkl``), so a train-only loop needs none.
 - ``SEMABS_PROFILE_DIR=<dir>`` writes a ``torch.profiler`` chrome trace of
@@ -51,7 +56,7 @@ import numpy as np
 import torch
 
 from ..clip.model import resolve_device
-from .. import parallel
+from .. import parallel, trace
 from ..data import (
     DataConfig,
     DataLoader,
@@ -569,7 +574,7 @@ def _train_epoch(state, train_step, loader, task, device, text_encoder, writer,
     every ``LOG_FLUSH`` steps and at the end of the epoch."""
     t_start = time.perf_counter()
     losses, grad_norms, pending = [], [], []
-    wait_s = h2d_s = 0.0
+    host_s = {"loader_wait_s": 0.0, "device_batch_s": 0.0}
 
     def flush():
         for gs, st in pending:
@@ -585,17 +590,17 @@ def _train_epoch(state, train_step, loader, task, device, text_encoder, writer,
     bi = 0
     while not (max_steps and bi >= max_steps):
         t0 = time.perf_counter()
-        batch = next(it, None)
-        t1 = time.perf_counter()
+        with trace.span("sa.loop.wait"):
+            batch = next(it, None)
+        wait_s = time.perf_counter() - t0
         if batch is None:
             break
+        host_s["loader_wait_s"] += wait_s
         profile.before_step(bi)
-        db = device_batch(batch, task, device, text_encoder)
-        t2 = time.perf_counter()
+        with trace.timed("sa.loop.device_batch", host_s, "device_batch_s"):
+            db = device_batch(batch, task, device, text_encoder)
         state, stats = train_step(state, db)
         profile.after_step(bi)
-        wait_s += t1 - t0
-        h2d_s += t2 - t1
         global_step += 1
         pending.append((global_step, stats))
         if len(pending) >= LOG_FLUSH:
@@ -603,8 +608,7 @@ def _train_epoch(state, train_step, loader, task, device, text_encoder, writer,
         bi += 1
     flush()
     it.close()  # an early stop releases the loader's workers
-    record = {"steps": len(losses), "wall_s": time.perf_counter() - t_start,
-              "loader_wait_s": wait_s, "device_batch_s": h2d_s,
+    record = {"steps": len(losses), "wall_s": time.perf_counter() - t_start, **host_s,
               "loss": float(np.mean(losses)) if losses else float("nan"),
               "losses": losses, "grad_norms": grad_norms}
     return state, global_step, record

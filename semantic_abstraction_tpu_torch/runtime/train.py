@@ -26,6 +26,11 @@ global batch: a masked mean (OVSSC's loss, every accuracy) takes its
 denominator over every rank's kept points, so the gradient DDP averages,
 the grad norm read after ``backward`` and the logged scalars are those of
 one process on the whole batch, whatever each rank keeps.
+
+A step is the span ``sa.train.step`` (``trace.span``: nothing unless the
+torch profiler is on) over ``sa.train.forward`` (``zero_grad``, forward,
+loss), ``sa.train.backward`` (with DDP's all-reduce), ``sa.train.clip``
+(global norm, clip) and ``sa.train.optimizer`` (LAMB).
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from .. import trace
 from ..models.lamb import Lamb
 from ..models.nets import (
     ClipSpatialVOOLConfig,
@@ -253,7 +259,8 @@ def make_train_step(forward_loss: Callable, cfg, tx: Optimizer,
     this rank's rows."""
     wrapped = {}
 
-    def step_fn(state: TrainState, batch: dict):
+    def forward(state: TrainState, batch: dict):
+        """-> (loss to differentiate, logged loss, accuracy)."""
         state.optimizer.zero_grad(set_to_none=True)
         if data_parallel:
             if wrapped.get("model") is not state.model:
@@ -265,17 +272,25 @@ def make_train_step(forward_loss: Callable, cfg, tx: Optimizer,
             loss, aux = wrapped["ddp"](batch)
             loss, (logged_loss, accuracy) = _global_means(
                 loss, aux, isinstance(cfg, _MASKED_MEAN_LOSS))
-        else:
-            loss, aux = forward_loss(state.model, cfg, batch,
-                                     balance_positive_negative, compute_dtype)
-            logged_loss, accuracy = loss.detach(), aux["accuracy"]
-        loss.backward()
-        # after backward: DDP has averaged the gradients over the ranks
-        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-        grad_norm = global_norm(grads)
-        clip_by_global_norm_(grads, grad_norm, tx.grad_max_norm)
-        state.optimizer.step()
-        state.step += 1
+            return loss, logged_loss, accuracy
+        loss, aux = forward_loss(state.model, cfg, batch,
+                                 balance_positive_negative, compute_dtype)
+        return loss, loss.detach(), aux["accuracy"]
+
+    def step_fn(state: TrainState, batch: dict):
+        with trace.span("sa.train.step"):
+            with trace.span("sa.train.forward"):
+                loss, logged_loss, accuracy = forward(state, batch)
+            with trace.span("sa.train.backward"):
+                loss.backward()
+            # after backward: DDP has averaged the gradients over the ranks
+            with trace.span("sa.train.clip"):
+                grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+                grad_norm = global_norm(grads)
+                clip_by_global_norm_(grads, grad_norm, tx.grad_max_norm)
+            with trace.span("sa.train.optimizer"):
+                state.optimizer.step()
+                state.step += 1
         return state, {"loss": logged_loss, "accuracy": accuracy,
                        "grad_norm": grad_norm}
 

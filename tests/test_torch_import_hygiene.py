@@ -34,7 +34,7 @@ def test_port_modules_are_found():
                  "cli.common", "cli.train_ovssc", "cli.train_vool", "cli.eval",
                  "cli.summarize", "parallel", "parallel.distributed", "clip.resnet",
                  "datagen", "datagen.naming", "datagen.receptacles",
-                 "datagen.relations", "datagen.scene", "cli.generate_thor_data"):
+                 "datagen.relations", "datagen.scene", "cli.generate_thor_data", "trace"):
         assert f"semantic_abstraction_tpu_torch.{name}" in mods
 
 
