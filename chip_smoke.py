@@ -19,7 +19,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``channel_moments`` and its backward kernel at the 11 (C, S) shapes of
    the full-size UNet's GroupNorms, at B = 4 (OVSSC) and B = 8 (VOOL) (the
    backward bit for bit), the forward at B = 1 (the inference paths), and
-   both (checked, not timed) at a data-parallel rank's B = 2 in f32.
+   both (checked, not timed) at a data-parallel rank's B = 2 in f32;
+   ``lamb_update`` (the clip's norm and LAMB, replacing no Pallas kernel)
+   at ``SemAbs3DConfig()``'s 121 leaves, its kernels at four chunk sizes
+   and the host-clock ms of one clip + step beside the plain version's.
    Times are device times: the calls captured in a
    CUDA graph and replayed, so that the host's launch rate does not set
    them;
@@ -47,7 +50,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    weights from seed 0, the ``bench_train.py`` batch from numpy seed 0
    (80,000 input points, 4 x 400,000 query points); first the bf16 eval
    and train step against the same in f32 from the same weights, then one
-   warm-up step, timed steps and one eval step;
+   warm-up step, timed steps (the clip + LAMB 3 launches a step) and one
+   eval step;
 8. profile one more train step, with the device time of the moments
    backward (the autograd node ``_ChannelMomentsBackward``);
 9. the five nets of ``FORWARD_LOSS`` at a small size (16^3 voxels, 8
@@ -466,6 +470,107 @@ def phase_moments(card: str):
     return rows, brows
 
 
+
+# chunk sizes timed beside lamb_update's default (ops/lamb_update.py CHUNK)
+LAMB_CHUNKS = (1 << 14, 1 << 15, 1 << 16, 1 << 17)
+LAMB_MAX_NORM = 2.0  # the recipe's clip; random unit gradients norm ~5,950
+
+
+def lamb_bound(numel: int, clip: bool):
+    """(least ms, "bytes") for the clip + LAMB over ``numel`` float32
+    parameters, each byte moved once at the HBM rate: g read for the norm;
+    g, m, v, p read and m, v (and g where the clip engages) written for
+    the moments; m, v, p read and p written for the update (about 12
+    flops an element, far below the f32 peak)."""
+    passes = 12 if clip else 11
+    return 1e3 * passes * 4 * numel / HBM_BYTES_PER_S, "bytes"
+
+
+def phase_lamb(card: str):
+    """``lamb_update``'s kernels (the clip's norm, the LAMB step) against
+    its plain version at ``SemAbs3DConfig()``'s 121 leaves, random unit
+    gradients (the clip engages): three steps within the card test's
+    tolerance (norm rtol 1e-5; p within 1e-5 of its leaf's change plus 4
+    ulps), 3 launches a step. Times: device ms of the kernels and of the
+    plain version (CUDA graph replays; the norm fed to the update held at
+    the first step's, so that each replay clips), the kernels at each of
+    LAMB_CHUNKS, and the host-clock ms of one clip + step as the train step
+    calls them, back to back, ending in a synchronise. Returns the row."""
+    import torch
+
+    from semantic_abstraction_tpu_torch.models import SemAbs3DConfig, init_net
+    from semantic_abstraction_tpu_torch.models.lamb import Lamb
+    from semantic_abstraction_tpu_torch.ops import lamb_update as lu
+
+    params = list(init_net(0, SemAbs3DConfig()).parameters())
+    numel = sum(p.numel() for p in params)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    grads = [torch.randn(p.shape, generator=g, device="cuda") for p in params]
+    opt = Lamb(params, lr=1e-3, weight_decay=1e-5)
+    hyper = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-6, weight_decay=1e-5,
+                 clamp_weight_norm=10.0)
+    ref_p = [p.detach().clone() for p in params]
+    ref_m = [torch.zeros_like(p) for p in params]
+    ref_v = [torch.zeros_like(p) for p in params]
+    norm_err = p_share = 0.0
+    for _ in range(3):
+        start = [p.detach().clone() for p in ref_p]
+        for p, gr in zip(params, grads):
+            p.grad = gr.clone()
+        ref_g = [gr.clone() for gr in grads]
+        before = lu.global_grad_norm.launches + lu.lamb_update_.launches
+        norm = opt.clip_grad_norm_(LAMB_MAX_NORM)
+        opt.step()
+        launches = lu.global_grad_norm.launches + lu.lamb_update_.launches - before
+        ref_norm = lu.grad_norm_reference(ref_g)
+        lu.lamb_update_reference(ref_p, ref_g, ref_m, ref_v, norm=ref_norm,
+                                 max_norm=LAMB_MAX_NORM, **hyper)
+        torch.cuda.synchronize()
+        norm_err = max(norm_err, abs(norm.item() / ref_norm.item() - 1))
+        for p, r, r0 in zip(params, ref_p, start):
+            tol = 1e-5 * (r - r0).abs().max() + 4 * 2.0**-23 * r.abs() + 1e-30
+            p_share = max(p_share, ((p.detach() - r).abs() / tol).max().item())
+    if launches != 3 or norm_err > 1e-5 or p_share > 1.0:
+        raise AssertionError(f"lamb_update: launches {launches}, norm rel err {norm_err}, "
+                             f"worst share of the p tolerance {p_share}")
+    tensors = (params, [p.grad for p in params], [opt.state[p]["exp_avg"] for p in params],
+               [opt.state[p]["exp_avg_sq"] for p in params], [(0, len(params))])
+    held = lu.grad_norm_reference(tensors[1])
+
+    def kernels(leaves):
+        lu.global_grad_norm(leaves)
+        lu.lamb_update_(leaves, 0, norm=held, max_norm=LAMB_MAX_NORM, **hyper)
+
+    chunk_ms = {}
+    for c in LAMB_CHUNKS:
+        leaves = lu.Leaves(*tensors, chunk=c)
+        chunk_ms[c] = time_ms(lambda: kernels(leaves), 20)
+
+    def plain():
+        lu.grad_norm_reference(tensors[1])
+        lu.lamb_update_reference(*tensors[:4], norm=held, max_norm=LAMB_MAX_NORM, **hyper)
+
+    plain_ms = time_ms(plain, 3)
+    host_ms = {}
+    for name, fn, n in (("kernel", lambda: (opt.clip_grad_norm_(LAMB_MAX_NORM), opt.step()), 20),
+                        ("plain", plain, 5)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        host_ms[name] = 1e3 * (time.perf_counter() - t0) / n
+    row = dict(leaves=len(params), params=numel, chunk=lu.CHUNK, launches=launches,
+               max_rel_err=norm_err, p_tolerance_share=p_share, ms=chunk_ms[lu.CHUNK],
+               plain_ms=plain_ms, library_ms=None, chunk_ms=chunk_ms,
+               host_ms=host_ms["kernel"], plain_host_ms=host_ms["plain"])
+    row["bound_ms"], row["bound_by"] = lamb_bound(numel, clip=True)
+    print(f"[kernel] lamb_update {json.dumps(row)} card={card}", flush=True)
+    del params, grads, opt, ref_p, ref_m, ref_v, tensors
+    torch.cuda.empty_cache()
+    return row
+
 def small_config(**kw):
     from semantic_abstraction_tpu_torch.clip import ClipConfig
 
@@ -601,7 +706,7 @@ def phase_bf16_vs_f32(card: str, label: str, forward_loss, cfg, model, batch,
 
     from semantic_abstraction_tpu_torch.runtime import (
         init_train_state, make_eval_step, make_optimizer, make_train_step)
-    from semantic_abstraction_tpu_torch.runtime.train import global_norm
+    from semantic_abstraction_tpu_torch.ops.lamb_update import grad_norm_reference
 
     res = {}
     for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
@@ -621,7 +726,8 @@ def phase_bf16_vs_f32(card: str, label: str, forward_loss, cfg, model, batch,
     diff, ref = (bl - fl).abs(), fl.abs()
     mean_rel = (diff.mean() / ref.mean()).item()
     max_rel = (diff.max() / ref.max()).item()
-    grad_rel = (global_norm([b - f for b, f in zip(bg, fg)]) / global_norm(fg)).item()
+    grad_rel = (grad_norm_reference([b - f for b, f in zip(bg, fg)])
+                / grad_norm_reference(fg)).item()
     print(f"[{label}] bf16 vs f32 at full width: logits mean|diff|/mean|f32| "
           f"{mean_rel} max|diff|/max|f32| {max_rel}; eval loss {bloss} vs {floss}; "
           f"train step {bst} vs {fst}; |g_bf16 - g_f32| / |g_f32| {grad_rel} "
@@ -648,6 +754,7 @@ def phase_ovssc(card: str):
     from semantic_abstraction_tpu_torch.ops.channel_moments import (
         channel_moments, channel_moments_backward)
     from semantic_abstraction_tpu_torch.ops.fused_mha import fused_mha
+    from semantic_abstraction_tpu_torch.ops.lamb_update import global_grad_norm, lamb_update_
     from semantic_abstraction_tpu_torch.runtime import (
         init_train_state, make_eval_step, make_optimizer, make_train_step,
         ovssc_forward_loss)
@@ -671,6 +778,7 @@ def phase_ovssc(card: str):
 
     torch.cuda.reset_peak_memory_stats()
     fused_mha.launches = channel_moments.launches = channel_moments_backward.launches = 0
+    global_grad_norm.launches = lamb_update_.launches = 0
     times = []
     for _ in range(TIMED_STEPS):
         t0 = time.perf_counter()
@@ -679,7 +787,8 @@ def phase_ovssc(card: str):
         times.append(time.perf_counter() - t0)
     launches = {"fused_mha": fused_mha.launches,
                 "channel_moments": channel_moments.launches,
-                "channel_moments_backward": channel_moments_backward.launches}
+                "channel_moments_backward": channel_moments_backward.launches,
+                "lamb_update": global_grad_norm.launches + lamb_update_.launches}
     loss, grad_norm = stats["loss"].item(), stats["grad_norm"].item()
     peak = torch.cuda.max_memory_allocated() / 1e9
 
@@ -687,6 +796,9 @@ def phase_ovssc(card: str):
         raise AssertionError(f"ovssc step: loss {loss} grad_norm {grad_norm}")
     if launches["channel_moments"] <= 0 or launches["channel_moments_backward"] <= 0:
         raise AssertionError(f"the OVSSC path left a moments kernel unlaunched: {launches}")
+    if launches["lamb_update"] != 3 * TIMED_STEPS:
+        raise AssertionError(f"the OVSSC step's clip + LAMB took other than 3 launches a "
+                             f"step: {launches}")
     eval_step = make_eval_step(ovssc_forward_loss, cfg, compute_dtype=torch.bfloat16)
     t0 = time.perf_counter()
     aux = eval_step(state.model, batch)
@@ -2142,6 +2254,7 @@ def main() -> int:
     rows, ragged = phase_kernel(card)
     crows = phase_cam(card)
     mrows, brows = phase_moments(card)
+    lamb_row = phase_lamb(card)
     phase_small(card, "small", small_config(), 1, (fused_mha,))
     phase_small(card, "small-multitail", small_config(vision_layers=4, vision_patch_size=14),
                 0, (fused_mha, cam_accumulate))
@@ -2298,6 +2411,16 @@ def main() -> int:
                      "backward_launches": [n["channel_moments_backward"]
                                            for n in gloo_launches],
                      "steps": GLOO_STEPS},
+    }, {
+        # replaces no Pallas kernel: the JAX package leaves optax's clip and
+        # LAMB to XLA's fusion. Phase 2's row at SemAbs3DConfig()'s 121
+        # leaves (the clip engaged), launches of phase 7's timed steps
+        "name": "lamb_update", "route": "cuda",
+        "source": "semantic_abstraction_tpu_torch/ops/csrc/lamb_update.cu",
+        "replaces": None,
+        **lamb_row,
+        "launches": ovssc_launches["lamb_update"],
+        "launches_per_step": ovssc_launches["lamb_update"] / TIMED_STEPS,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -30,12 +30,14 @@ one process on the whole batch, whatever each rank keeps.
 A step is the span ``sa.train.step`` (``trace.span``: nothing unless the
 torch profiler is on) over ``sa.train.forward`` (``zero_grad``, forward,
 loss), ``sa.train.backward`` (with DDP's all-reduce), ``sa.train.clip``
-(global norm, clip) and ``sa.train.optimizer`` (LAMB).
+(the global norm) and ``sa.train.optimizer`` (the clip and LAMB: on the
+card ``ops.lamb_update``'s kernels, one launch for the norm and two for
+the update, whatever the number of parameters).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterable
+from typing import Callable
 
 import torch
 import torch.distributed as dist
@@ -93,19 +95,6 @@ class TrainState:
 
 def init_train_state(model: nn.Module, tx: Optimizer) -> TrainState:
     return TrainState(model=model, optimizer=tx.init(model))
-
-
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax ``global_norm``)."""
-    return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
-
-
-def clip_by_global_norm_(grads, norm: torch.Tensor, max_norm: float) -> None:
-    """optax ``clip_by_global_norm``: g * max_norm / norm where norm >=
-    max_norm, in place, with no read-back of the norm."""
-    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    for g in grads:
-        g.mul_(scale)
 
 
 def ovssc_forward_loss(model, cfg: SemAbs3DConfig, batch: dict,
@@ -285,9 +274,7 @@ def make_train_step(forward_loss: Callable, cfg, tx: Optimizer,
                 loss.backward()
             # after backward: DDP has averaged the gradients over the ranks
             with trace.span("sa.train.clip"):
-                grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-                grad_norm = global_norm(grads)
-                clip_by_global_norm_(grads, grad_norm, tx.grad_max_norm)
+                grad_norm = state.optimizer.clip_grad_norm_(tx.grad_max_norm)
             with trace.span("sa.train.optimizer"):
                 state.optimizer.step()
                 state.step += 1
