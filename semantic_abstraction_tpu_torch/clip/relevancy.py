@@ -22,7 +22,11 @@ CLS-row relevancy over image patches.
 
 Stage spans (``trace.span``): ``sa.relevancy.head`` around the head scan,
 ``sa.relevancy.tail`` around the rest (the tail blocks, the batched
-``autograd.grad``, the cam; ``cam_accumulate`` on the general path).
+``autograd.grad``, the cam; ``cam_accumulate`` on the general path). On
+the general path the tail holds three spans of its own:
+``sa.relevancy.tail.forward`` (the tail blocks with their perturbations),
+``.backward`` (the batched ``autograd.grad``) and ``.cam`` (the chain of
+``cam_accumulate``); the closed form opens none.
 """
 from __future__ import annotations
 
@@ -161,15 +165,17 @@ def _gradcam_general_tail(visual, x_mid, zeroshot_weights, cfg: ClipConfig,
     h_heads = cfg.vision_heads
     t = cfg.vision_tokens
     with torch.enable_grad():
-        eps = [torch.zeros((b, h_heads, t, t), dtype=compute_dtype,
-                           device=x_mid.device, requires_grad=True)
-               for _ in range(n_tail)]
-        feats, probs = _vit_tail(visual, x_mid, cfg, compute_dtype, n_head, eps)
-        grads = torch.autograd.grad(
-            feats, eps, _label_cotangents(zeroshot_weights, b),
-            is_grads_batched=True,
-        )  # per tail block: (L, B, H, T, T)
-    with torch.no_grad():
+        with trace.span("sa.relevancy.tail.forward"):
+            eps = [torch.zeros((b, h_heads, t, t), dtype=compute_dtype,
+                               device=x_mid.device, requires_grad=True)
+                   for _ in range(n_tail)]
+            feats, probs = _vit_tail(visual, x_mid, cfg, compute_dtype, n_head, eps)
+        with trace.span("sa.relevancy.tail.backward"):
+            grads = torch.autograd.grad(
+                feats, eps, _label_cotangents(zeroshot_weights, b),
+                is_grads_batched=True,
+            )  # per tail block: (L, B, H, T, T)
+    with torch.no_grad(), trace.span("sa.relevancy.tail.cam"):
         num_labels = zeroshot_weights.shape[1]
         # the first R is the identity expanded with stride 0 over (L, B): the
         # kernel reads R through its strides, so it is never materialized

@@ -25,6 +25,7 @@ CLIP = dict(embed_dim=32, image_resolution=64, vision_layers=3, vision_width=64,
 LABELS = ["chair", "table", "sofa"]
 IMAGE_LEAVES = {"sa.relevancy." + s for s in
                 ("text", "images", "plan", "tiles", "head", "tail", "canvas")}
+TAIL_LEAVES = ["sa.relevancy.tail." + s for s in ("forward", "backward", "cam")]
 STEP_LEAVES = ["sa.train.forward", "sa.train.backward", "sa.train.clip",
                "sa.train.optimizer"]
 
@@ -200,10 +201,16 @@ def test_relevancy_image_spans_and_maps_equal(num_layers, flip, distractors):
     recs = trace.records()
     image = [r for r in recs if r.name == "sa.relevancy.image"]
     assert len(image) == 1 and image[0].parent is None
-    leaves = [r for r in recs if r is not image[0]]
-    assert all(r.parent is image[0] for r in leaves)
+    leaves = [r for r in recs if r.parent is image[0]]
     counts = {n: sum(r.name == n for r in leaves) for n in IMAGE_LEAVES}
     assert counts == expected_counts(img, config, len(LABELS), 5, 2, len(distractors))
+    # the rest sit in the tail spans: the general path's three in each of its
+    # gradcam calls, the closed form's none
+    inner = [[r.name for r in recs if r.parent is t]
+             for t in leaves if t.name == "sa.relevancy.tail"]
+    assert len(recs) == 1 + len(leaves) + sum(map(len, inner))
+    general = [n for n in inner if n]
+    assert general == [TAIL_LEAVES] * (counts["sa.relevancy.head"] if num_layers == 0 else 0)
     assert sum(r.host_ms for r in leaves) <= image[0].host_ms
 
 
