@@ -2,30 +2,37 @@
 
     python3 chip_smoke.py
 
-Phases (any failure ends the run with a non-zero exit and no result line):
+It does what no other tool of the repo does on the card. The kernels'
+correctness cases are the card tests' (``tests/test_torch_*_card.py``);
+the benchmark's cells (``benchmark/run.py``) time and trace the paths they
+run: the ViT-B/32 and ViT-L/14 relevancy images and the OVSSC train step;
+here those paths run untimed, for the checks and launch counts no cell
+makes.
+Phases (any failure ends the run with a non-zero exit and no result line;
+each keeps the number that PERF.md and ROADMAP.md cite, so 5, 6, 8 and 11
+are unused):
 
 1. build every CUDA kernel of the port from ``ops/csrc`` (one nvcc each,
    started together) and report the build time;
-2. hold each kernel against its plain PyTorch version on the card at its
-   path's shapes, in f32 and bf16, and time kernel, plain version, the
-   PyTorch library call (a yardstick only) and the bound: ``fused_mha`` at
-   the ViT-B/32 path's tile chunks (T = 50), at get_visual_feature's one
-   image (B = 1, T = 50) and at ViT-L/14's T = 257 and 577 (each run twice:
-   equal bit for bit), and (checked, not timed) at B = 1 on every ragged
-   edge of its 64-row and 64-key tiles up to its 2048-token bound; the
-   bound of its f32 body and of ``cam_accumulate`` counts their f32
-   products as three TF32 products at the TF32 rate; ``cam_accumulate``
-   at the ViT-B/32 and ViT-L/14 shapes of the multi-tail gradcam;
-   ``channel_moments`` and its backward kernel at the 11 (C, S) shapes of
-   the full-size UNet's GroupNorms, at B = 4 (OVSSC) and B = 8 (VOOL) (the
-   backward bit for bit), the forward at B = 1 (the inference paths), and
-   both (checked, not timed) at a data-parallel rank's B = 2 in f32;
+2. time each kernel at its path's shapes beside its plain PyTorch version,
+   the PyTorch library call (a yardstick only) and its roofline bound
+   (``benchmark/counts.py`` and ``benchmark/counts_multitail.py``), in f32
+   and bf16: ``fused_mha`` at the ViT-B/32 path's tile chunks (T = 50), at
+   get_visual_feature's one image (B = 1, T = 50) and at ViT-L/14's T = 257
+   and 577; ``cam_accumulate`` at the ViT-B/32 and ViT-L/14 shapes of the
+   multi-tail gradcam; ``channel_moments`` and its backward kernel at the
+   11 (C, S) shapes of the full-size UNet's GroupNorms, at B = 4 (OVSSC)
+   and B = 8 (VOOL), the forward at B = 1 (the inference paths);
    ``lamb_update`` (the clip's norm and LAMB, replacing no Pallas kernel)
    at ``SemAbs3DConfig()``'s 121 leaves, its kernels at four chunk sizes
    and the host-clock ms of one clip + step beside the plain version's.
-   Times are device times: the calls captured in a
-   CUDA graph and replayed, so that the host's launch rate does not set
-   them;
+   Each timed shape is first read once against the plain version at the
+   card test's tolerance, so that no wrong kernel is timed (``cam_accumulate``
+   also with the stride-0 identity R of the gradcam's first step); and both
+   moments kernels are checked, not timed, at a data-parallel rank's B = 2
+   in f32, which no card test runs. Times are device times: the calls
+   captured in a CUDA graph and replayed, so that the host's launch rate
+   does not set them;
 3. run small ``ClipSaliency`` pipelines on the card and on the CPU with the
    same weights and jitter draws, and the maps must agree: a single-tail
    one at T = 50 and a multi-tail one (4 blocks, num_layers=0, patch 14)
@@ -33,27 +40,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    train steps of a small SemAbs3D on the card and on the CPU from the
    same weights and batch (f32, TF32 off); loss, grad norm, logits and the
    updated parameters must agree;
-4. run the relevancy path at full width: the ``image`` command's
-   ``build_saliency`` + ``relevancy`` (ViT-B/32, random weights, bf16,
-   "ours" crops on a seeded 480x640 image, the 9 headline labels), one
-   warm-up image, then timed images; then the same image with
-   ``--compute_dtype float32`` (K1's f32 body), one warm-up and one timed
-   image, its launches counted;
-5. profile one more image with ``torch.profiler`` (device time by kernel);
-6. the multi-tail path at full width: OpenAI ViT-L/14's shape (24 blocks
-   of width 1024, patch 14, T = 257) with random weights, bf16, the CLI's
-   num_layers=10 (13 tail blocks, each accumulated by ``cam_accumulate``)
-   on the same image and labels: one warm-up image, timed images, and one
-   profiled image;
-7. run the OVSSC train step at full width: ``SemAbs3DConfig()`` (128^3
-   voxels, 16 channels, f_maps 16, 6 levels, 4 patches), bf16, random
-   weights from seed 0, the ``bench_train.py`` batch from numpy seed 0
-   (80,000 input points, 4 x 400,000 query points); first the bf16 eval
-   and train step against the same in f32 from the same weights, then one
-   warm-up step, timed steps (the clip + LAMB 3 launches a step) and one
-   eval step;
-8. profile one more train step, with the device time of the moments
-   backward (the autograd node ``_ChannelMomentsBackward``);
+4. the relevancy paths at full width, untimed: the ``image`` command's
+   ``build_saliency`` + ``relevancy`` (ViT-B/32, random weights, "ours"
+   crops on a seeded 480x640 image, the 9 headline labels) on one image in
+   bf16 and on the same image with ``--compute_dtype float32`` (K1's f32
+   body, which no cell runs), then ViT-L/14 (random weights from seed 0,
+   bf16, the general tail of 13 blocks at T = 257) on it: maps of the
+   image's shape, finite and not all zero, as many K1 launches in f32 as in
+   bf16, and on ViT-L/14 11 K1 and 13 K2 launches a gradcam call;
+7. the OVSSC net at full width: ``SemAbs3DConfig()`` (128^3 voxels, 16
+   channels, f_maps 16, 6 levels, 4 patches), random weights from seed 0,
+   the ``bench_train.py`` batch from numpy seed 0 (80,000 input points, 4 x
+   400,000 query points): the bf16 eval and train step against the same in
+   f32 from the same weights, then a bf16 eval step;
 9. the five nets of ``FORWARD_LOSS`` at a small size (16^3 voxels, 8
    channels, 3 levels, 2 descriptions or patches), card vs CPU from one
    init, f32 with TF32 off: the forward-loss and one train step of each,
@@ -65,17 +64,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    from numpy seed 0; bf16 against f32, one warm-up step, timed steps, an
    eval step and the 25-cutoff point and 32^3 voxel metrics over its
    logits;
-11. profile one more VOOL train step, likewise;
 12. the loop users run, for OVSSC and for VOOL at full width, through the
    port's ``runtime.experiment`` (``build_setup``, ``train``,
    ``eval_batches``): one epoch of 10 loader-fed steps (4 loader threads,
    the native loader kernels, pinned non-blocking copies) over in-memory
    full-width scenes (``MemoryScenes``: the card's machine has no h5py),
    then 2 eval batches at the 25 detailed cutoffs, then a ``latest.ckpt``
-   round trip bit for bit; loader-fed steps/s beside the device-resident
-   rate of phase 7 or 10, the share of the epoch spent waiting on the
-   loader, H2D ms a batch, peak memory, and the moments launches a step
-   (33 forward and 33 backward);
+   round trip bit for bit; loader-fed steps/s (VOOL's beside the
+   device-resident rate of phase 10), the share of the epoch spent waiting
+   on the loader, H2D ms a batch, peak memory, the moments launches a step
+   (33 forward and 33 backward) and the clip + LAMB launches a step (3);
 13. the ``generate_relevancy dataset`` writer without h5py: 3 in-memory
    480x640 scenes whose labels (~40 each) come from ``_scene_labels`` over
    a THOR-like object list and descriptions, ViT-B/32 "ours" bf16, the maps
@@ -100,7 +98,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    NCCL group (this script, started as torch.distributed.run starts a
    rank), the train step under DDP; then one process without a group from
    the same seed and items: the first 3 steps' loss and grad norm must
-   agree; steps/s beside phase 7's resident rate, K3 launches a step;
+   agree; steps/s, K3 launches a step;
 17. data parallelism, 2 ranks over gloo sharing the one card:
    ``SemAbs3DConfig()``, f32, 2 rows a rank of 2 patches whose halves keep
    different point counts (the masked mean over both ranks), 2 steps
@@ -115,9 +113,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 THOR datagen (``datagen/``, ``cli/generate_thor_data.py``) does no device
 work and ``ai2thor`` is not installed: it has no phase.
 
-Each path's kernel launch counts are set to 0 just before its timed run
-and read just after. Prints a ``{"kernels": [...]}`` line, the card's name
-and power limit, and as the last line ``{"ok": true, "device": {...}}``.
+Each path's kernel launch counts are set to 0 just before its run and read
+just after. Prints a ``{"kernels": [...]}`` line, the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -130,26 +128,16 @@ import time
 
 import numpy as np
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s; dense FLOP/s
-# of the tensor cores in bf16 and in TF32 (495 TFLOP/s: the rate of the
-# kernels' f32 products, each taken as three TF32 products), and of f32
-# outside the tensor cores (67 TFLOP/s: elementwise and reduction work)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 HEADLINE_LABELS = [
     "basketball jersey", "nintendo switch", "television", "ping pong table",
     "vase", "fireplace", "abstract painting of a vespa", "carpet", "wall",
 ]
-TIMED_IMAGES = 3
-TIMED_VITL_IMAGES = 1
 TIMED_STEPS = 5
 # OpenAI ViT-L/14, the published shape (the JAX package reads it from a
 # state dict with config_from_state_dict; no preset in either package)
 VIT_L_14 = dict(embed_dim=768, image_resolution=224, vision_layers=24,
                 vision_width=1024, vision_patch_size=14, context_length=77,
                 vocab_size=49408, text_width=768, text_heads=12, text_layers=12)
-# fused_mha's ragged token counts, checked at B = 1
-RAGGED_TOKENS = (1, 16, 17, 50, 63, 64, 65, 197, 256, 257, 577, 2048)
 # (C, S) of every GroupNorm of the full-size UNet, at B = 4 volumes (OVSSC)
 # and B = 8 (VOOL's one pass over both streams' 4 volumes; the kernel plans
 # its launch from B * C rows, so (8, 32, 64^3) and (8, 512, 4^3) give row
@@ -198,26 +186,13 @@ def time_ms(fn, iters: int = 100) -> float:
     return start.elapsed_time(end) / (3 * iters)
 
 
-def mha_bound(b: int, t: int, w: int, heads: int, dtype: str):
-    """(least ms, "bytes" or "operations") for fused MHA: q, k, v read once
-    and out written once at the HBM rate, or the products' flops on the
-    tensor cores, whichever is larger. The products are 4*B*H*T*T*hd flops:
-    in bf16 at the bf16 rate (989 TFLOP/s); in f32 three times that, as
-    three TF32 products each (the f32 body's 3xTF32), at the dense TF32
-    rate (495 TFLOP/s)."""
-    elt = 2 if dtype == "bfloat16" else 4
-    bytes_s = 4 * b * t * w * elt / HBM_BYTES_PER_S
-    flops = 4 * b * heads * t * t * (w // heads)
-    flops_s = (flops / PEAK_FLOPS["bfloat16"] if dtype == "bfloat16"
-               else 3 * flops / PEAK_FLOPS["tf32"])
-    return 1e3 * max(bytes_s, flops_s), ("bytes" if bytes_s >= flops_s else "operations")
-
-
 def phase_kernel(card: str):
-    """fused_mha vs mha_reference at the relevancy paths' shapes."""
+    """fused_mha timed against mha_reference at the relevancy paths'
+    shapes, each shape read once against the plain version first."""
     import torch
     import torch.nn.functional as F
 
+    from benchmark.counts import mha_bound_s
     from semantic_abstraction_tpu_torch.ops.fused_mha import fused_mha, mha_reference
 
     # (B, T, W): ViT-B/32 tile chunks of the main path at tile_batch_size 32
@@ -226,11 +201,11 @@ def phase_kernel(card: str):
     # and get_visual_feature's one image (B = 1, T = 50)
     shapes = [(b, 50, 768) for b in (1, 12, 32, 42, 45, 48, 64, 90)]
     shapes += [(48, 257, 1024), (48, 577, 1024)]
-    # f32: sums in another order than cuBLAS; bf16: the output and the probs
-    # round to bf16 (1 ulp = 2^-8 relative), so 2 ulp of |out| <= 2
+    # the card test's: f32 sums in another order than cuBLAS; bf16: the
+    # output and the probs round to bf16 (1 ulp = 2^-8 relative), so 2 ulp
+    # of |out| <= 2
     tols = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-2)}
     rows = []
-    ragged = {}  # dtype -> largest error over the ragged token counts
     g = torch.Generator(device="cuda").manual_seed(0)
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         atol, rtol = tols[dname]
@@ -243,11 +218,8 @@ def phase_kernel(card: str):
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             rel = err / ref.float().abs().max().item()
-            ok = torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
-            if not ok:
+            if not torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol):
                 raise AssertionError(f"fused_mha {dname} B={b} T={t}: max err {err}")
-            if not torch.equal(fused_mha(q, k, v, heads), out):
-                raise AssertionError(f"fused_mha {dname} B={b} T={t}: not deterministic")
             qh, kh, vh = (a.reshape(b, t, heads, w // heads).transpose(1, 2)
                           for a in (q, k, v))
             iters = 100 if t <= 64 else 20
@@ -256,46 +228,17 @@ def phase_kernel(card: str):
                        plain_ms=time_ms(lambda: mha_reference(q, k, v, heads), iters),
                        library_ms=time_ms(
                            lambda: F.scaled_dot_product_attention(qh, kh, vh), iters),
-                       )
-            row["bound_ms"], row["bound_by"] = mha_bound(b, t, w, heads, dname)
+                       bound_ms=1e3 * mha_bound_s(b, t, w, heads, dname))
             rows.append(row)
             print(f"[kernel] fused_mha {json.dumps(row)} card={card}", flush=True)
             del qkv, q, k, v, qh, kh, vh, out, ref
-        # the ragged edges of both bodies' query and K/V tiles (bf16: 64
-        # rows, 64 keys; f32: 16-row tiles in 128-row CTAs, 32 keys), one
-        # token, the first version's 256-token bound and the 2048-token bound
-        for t in RAGGED_TOKENS:
-            q, k, v = torch.randn(1, t, 3 * 768, device="cuda", generator=g).to(dtype).split(768, -1)
-            out, ref = fused_mha(q, k, v, 12).float(), mha_reference(q, k, v, 12).float()
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            if not torch.allclose(out, ref, atol=atol, rtol=rtol):
-                raise AssertionError(f"fused_mha {dname} B=1 T={t}: max err {err}")
-            print(f"[kernel] fused_mha {dname} B=1 T={t} max_abs_err {err} card={card}",
-                  flush=True)
-            ragged[dname] = max(ragged.get(dname, 0.0), err)
-            del q, k, v, out, ref
-    return rows, ragged
-
-
-def cam_bound(l: int, b: int, h: int, t: int, dtype: str):
-    """(least ms, "bytes" or "operations") for one cam_accumulate step:
-    grad and attn read once, R read once and out written once (f32) at the
-    HBM rate, or the operations: the f32 product's 2*L*B*T^3 flops as three
-    TF32 products (the kernel's 3xTF32) at the dense TF32 rate (495
-    TFLOP/s), and 3 flops an element of grad (product, ReLU, head sum) at
-    the f32 rate outside the tensor cores (67 TFLOP/s), which run beside
-    them."""
-    elt = 2 if dtype == "bfloat16" else 4
-    bytes_s = ((l * b * h + b * h) * t * t * elt + 2 * l * b * t * t * 4) / HBM_BYTES_PER_S
-    flops_s = max(3 * 2 * l * b * t**3 / PEAK_FLOPS["tf32"],
-                  3 * l * b * h * t * t / PEAK_FLOPS["float32"])
-    return 1e3 * max(bytes_s, flops_s), ("bytes" if bytes_s >= flops_s else "operations")
+    return rows
 
 
 def cam_inputs(g, l, b, h, t, dtype, identity=False):
-    """Attention probabilities, signed gradients and R (the identity
-    expanded with stride 0, as the gradcam's first step, or dense)."""
+    """Attention probabilities, signed gradients and R: the identity
+    expanded with stride 0, as at the gradcam's first step, or a dense R,
+    as at a later one."""
     import torch
 
     attn = torch.softmax(4 * torch.randn(b, h, t, t, device="cuda", generator=g), -1)
@@ -306,27 +249,30 @@ def cam_inputs(g, l, b, h, t, dtype, identity=False):
     return grad.to(dtype), attn.to(dtype), r
 
 
-def cam_rel_err(out, grad, attn, r, positive):
+def cam_rel_err(out, grad, attn, r):
     """(largest |kernel - plain| over the sum of its terms' magnitudes,
-    |R| + |cam| @ |R|, largest |kernel - plain|): both versions sum the same
-    f32 values in other orders."""
+    |R| + |cam| @ |R|, largest |kernel - plain|), ReLU on: both versions sum
+    the same f32 values in other orders."""
     import torch
 
     from semantic_abstraction_tpu_torch.ops.cam_accumulate import cam_accumulate_reference
 
-    ref = cam_accumulate_reference(grad, attn, r, positive)
+    ref = cam_accumulate_reference(grad, attn, r)
     scale = r.abs() + torch.matmul(
         (grad.float() * attn[None].float()).abs().mean(dim=2), r.abs())
     return ((out - ref).abs() / scale).max().item(), (out - ref).abs().max().item()
 
 
 def phase_cam(card: str):
-    """cam_accumulate vs cam_accumulate_reference at the multi-tail
-    gradcam's shapes: L = 9 labels, B = 48 tiles, ViT-B/32 (H = 12, T = 50)
-    and ViT-L/14 (H = 16, T = 257), a dense R, ReLU on (timed) and off, and
-    the stride-0 identity R. Tolerance: 1e-5 of |R| + |cam| @ |R|."""
+    """cam_accumulate timed against cam_accumulate_reference at the
+    multi-tail gradcam's shapes: L = 9 labels, B = 48 tiles, ViT-B/32
+    (H = 12, T = 50) and ViT-L/14 (H = 16, T = 257), a dense R, ReLU on, as
+    on the path; each shape read once against the plain version first, to
+    the card test's 1e-5 of |R| + |cam| @ |R|, with the stride-0 identity R
+    of the path's first step (read, not timed) and with the dense R."""
     import torch
 
+    from benchmark.counts_multitail import cam_bound_s
     from semantic_abstraction_tpu_torch.ops.cam_accumulate import (
         cam_accumulate, cam_accumulate_reference)
 
@@ -335,27 +281,25 @@ def phase_cam(card: str):
     g = torch.Generator(device="cuda").manual_seed(0)
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for h, t in ((12, 50), (16, 257)):
-            errs = []
-            for positive, identity in ((True, False), (False, False), (True, True)):
+            for identity in (True, False):
                 grad, attn, r = cam_inputs(g, l, b, h, t, dtype, identity)
-                out = cam_accumulate(grad, attn, r, positive)
+                out = cam_accumulate(grad, attn, r)
                 torch.cuda.synchronize()
-                errs.append(cam_rel_err(out, grad, attn, r, positive))
-                if not errs[-1][0] <= 1e-5:
-                    raise AssertionError(f"cam_accumulate {dname} T={t} relu={positive} "
-                                         f"identity={identity}: rel err {errs[-1][0]}")
+                rel, err = cam_rel_err(out, grad, attn, r)
+                if not rel <= 1e-5:
+                    raise AssertionError(f"cam_accumulate {dname} T={t} "
+                                         f"identity={identity}: rel err {rel}")
                 del out
-            # timed: the general step (dense R), ReLU on, as on the path
-            grad, attn, r = cam_inputs(g, l, b, h, t, dtype)
+                if identity:
+                    id_rel = rel
+                    del grad, attn, r
             iters = 100 if t <= 64 else 20
-            row = dict(dtype=dname, L=l, B=b, H=h, T=t,
-                       max_rel_err=max(e[0] for e in errs),
-                       max_abs_err=max(e[1] for e in errs),
+            row = dict(dtype=dname, L=l, B=b, H=h, T=t, max_rel_err=rel, max_abs_err=err,
+                       identity_max_rel_err=id_rel,
                        ms=time_ms(lambda: cam_accumulate(grad, attn, r), iters),
                        plain_ms=time_ms(lambda: cam_accumulate_reference(grad, attn, r),
                                         iters),
-                       library_ms=None)
-            row["bound_ms"], row["bound_by"] = cam_bound(l, b, h, t, dname)
+                       library_ms=None, bound_ms=1e3 * cam_bound_s(l, b, h, t, dname))
             rows.append(row)
             print(f"[kernel] cam_accumulate {json.dumps(row)} tol rel 1e-5 card={card}",
                   flush=True)
@@ -364,35 +308,18 @@ def phase_cam(card: str):
     return rows
 
 
-def moments_bound(b: int, c: int, s: int, dtype: str):
-    """(least ms, "bytes" or "operations") for the channel moments: x read
-    once and the two (B, C) f32 outputs written once at the HBM rate, or
-    3 flops an element (an add and a fused multiply-add) at the f32 peak."""
-    elt = 2 if dtype == "bfloat16" else 4
-    bytes_s = (b * c * s * elt + 8 * b * c) / HBM_BYTES_PER_S
-    flops_s = 3 * b * c * s / PEAK_FLOPS["float32"]
-    return 1e3 * max(bytes_s, flops_s), ("bytes" if bytes_s >= flops_s else "operations")
-
-
-def moments_backward_bound(b: int, c: int, s: int, dtype: str):
-    """(least ms, "bytes" or "operations") for the moments' backward: x
-    read once, gx written once and the two (B, C) f32 gradients read once
-    at the HBM rate, or 3 flops an element (two products and a sum) at the
-    f32 peak."""
-    elt = 2 if dtype == "bfloat16" else 4
-    bytes_s = (2 * b * c * s * elt + 8 * b * c) / HBM_BYTES_PER_S
-    flops_s = 3 * b * c * s / PEAK_FLOPS["float32"]
-    return 1e3 * max(bytes_s, flops_s), ("bytes" if bytes_s >= flops_s else "operations")
-
-
 def phase_moments(card: str):
-    """channel_moments vs channel_moments_reference at the UNet's shapes,
-    and its backward kernel vs channel_moments_backward_reference.
-    Tolerance: the same f32 values summed in another order, so s2 (terms
-    >= 0) within rtol 1e-5 and s1 within 1e-5 of sum |x| (it cancels); the
-    backward bit for bit. Returns (forward rows, backward rows)."""
+    """channel_moments timed against channel_moments_reference at the
+    UNet's shapes, and its backward kernel against
+    channel_moments_backward_reference, each shape read once against the
+    plain version first; then both checked, not timed, at a rank's B = 2.
+    Tolerance (the card test's): the same f32 values summed in another
+    order, so s2 (terms >= 0) within rtol 1e-5 and s1 within 1e-5 of sum |x|
+    (it cancels); the backward bit for bit. Returns (forward rows, backward
+    rows)."""
     import torch
 
+    from benchmark.counts import moments_backward_bound_s, moments_bound_s
     from semantic_abstraction_tpu_torch.ops.channel_moments import (
         channel_moments, channel_moments_backward, channel_moments_backward_reference,
         channel_moments_reference)
@@ -418,8 +345,8 @@ def phase_moments(card: str):
                        ms=time_ms(lambda: channel_moments(x)),
                        plain_ms=time_ms(lambda: channel_moments_reference(x)),
                        library_ms=time_ms(
-                           lambda: torch.var_mean(x, dim=2, correction=0)))
-            row["bound_ms"], row["bound_by"] = moments_bound(b, c, s, dname)
+                           lambda: torch.var_mean(x, dim=2, correction=0)),
+                       bound_ms=1e3 * moments_bound_s(b, c, s, dname))
             rows.append(row)
             print(f"[kernel] channel_moments {json.dumps(row)} tol rel 1e-5 "
                   f"card={card}", flush=True)
@@ -444,8 +371,8 @@ def phase_moments(card: str):
                         plain_ms=time_ms(
                             lambda: channel_moments_backward_reference(x, g1, g2), iters),
                         library_ms=time_ms(lambda: torch.addcmul(
-                            g1[..., None], x, g2[..., None], value=2.0, out=lib_out), iters))
-            brow["bound_ms"], brow["bound_by"] = moments_backward_bound(b, c, s, dname)
+                            g1[..., None], x, g2[..., None], value=2.0, out=lib_out), iters),
+                        bound_ms=1e3 * moments_backward_bound_s(b, c, s, dname))
             brows.append(brow)
             print(f"[kernel] channel_moments_backward {json.dumps(brow)} bit-equal "
                   f"card={card}", flush=True)
@@ -470,30 +397,30 @@ def phase_moments(card: str):
     return rows, brows
 
 
-
 # chunk sizes timed beside lamb_update's default (ops/lamb_update.py CHUNK)
 LAMB_CHUNKS = (1 << 14, 1 << 15, 1 << 16, 1 << 17)
 LAMB_MAX_NORM = 2.0  # the recipe's clip; random unit gradients norm ~5,950
 
 
-def lamb_bound(numel: int, clip: bool):
-    """(least ms, "bytes") for the clip + LAMB over ``numel`` float32
-    parameters, each byte moved once at the HBM rate: g read for the norm;
-    g, m, v, p read and m, v (and g where the clip engages) written for
-    the moments; m, v, p read and p written for the update (about 12
-    flops an element, far below the f32 peak)."""
-    passes = 12 if clip else 11
-    return 1e3 * passes * 4 * numel / HBM_BYTES_PER_S, "bytes"
+def lamb_bound_ms(numel: int) -> float:
+    """Least ms of the clip + LAMB over ``numel`` float32 parameters, the
+    clip engaged, each byte moved once at ``benchmark/counts.py``'s HBM
+    rate: g read for the norm; g, m, v, p read and m, v, g written for the
+    moments; m, v, p read and p written for the update (about 12 flops an
+    element, far below the f32 peak)."""
+    from benchmark.counts import HBM_BYTES_PER_S
+
+    return 1e3 * 12 * 4 * numel / HBM_BYTES_PER_S
 
 
 def phase_lamb(card: str):
     """``lamb_update``'s kernels (the clip's norm, the LAMB step) against
     its plain version at ``SemAbs3DConfig()``'s 121 leaves, random unit
-    gradients (the clip engages): three steps within the card test's
-    tolerance (norm rtol 1e-5; p within 1e-5 of its leaf's change plus 4
-    ulps), 3 launches a step. Times: device ms of the kernels and of the
-    plain version (CUDA graph replays; the norm fed to the update held at
-    the first step's, so that each replay clips), the kernels at each of
+    gradients (the clip engages): one step read against the plain version
+    at the card test's tolerance (norm rtol 1e-5; p within 1e-5 of its
+    leaf's change plus 4 ulps), 3 launches. Times: device ms of the kernels
+    and of the plain version (CUDA graph replays; the norm fed to the update
+    held at the first step's, so that each replay clips), the kernels at each of
     LAMB_CHUNKS, and the host-clock ms of one clip + step as the train step
     calls them, back to back, ending in a synchronise. Returns the row."""
     import torch
@@ -509,27 +436,24 @@ def phase_lamb(card: str):
     opt = Lamb(params, lr=1e-3, weight_decay=1e-5)
     hyper = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-6, weight_decay=1e-5,
                  clamp_weight_norm=10.0)
-    ref_p = [p.detach().clone() for p in params]
+    start = [p.detach().clone() for p in params]
+    ref_p = [p.clone() for p in start]
     ref_m = [torch.zeros_like(p) for p in params]
     ref_v = [torch.zeros_like(p) for p in params]
-    norm_err = p_share = 0.0
-    for _ in range(3):
-        start = [p.detach().clone() for p in ref_p]
-        for p, gr in zip(params, grads):
-            p.grad = gr.clone()
-        ref_g = [gr.clone() for gr in grads]
-        before = lu.global_grad_norm.launches + lu.lamb_update_.launches
-        norm = opt.clip_grad_norm_(LAMB_MAX_NORM)
-        opt.step()
-        launches = lu.global_grad_norm.launches + lu.lamb_update_.launches - before
-        ref_norm = lu.grad_norm_reference(ref_g)
-        lu.lamb_update_reference(ref_p, ref_g, ref_m, ref_v, norm=ref_norm,
-                                 max_norm=LAMB_MAX_NORM, **hyper)
-        torch.cuda.synchronize()
-        norm_err = max(norm_err, abs(norm.item() / ref_norm.item() - 1))
-        for p, r, r0 in zip(params, ref_p, start):
-            tol = 1e-5 * (r - r0).abs().max() + 4 * 2.0**-23 * r.abs() + 1e-30
-            p_share = max(p_share, ((p.detach() - r).abs() / tol).max().item())
+    for p, gr in zip(params, grads):
+        p.grad = gr.clone()
+    before = lu.global_grad_norm.launches + lu.lamb_update_.launches
+    norm = opt.clip_grad_norm_(LAMB_MAX_NORM)
+    opt.step()
+    launches = lu.global_grad_norm.launches + lu.lamb_update_.launches - before
+    ref_norm = lu.grad_norm_reference(grads)
+    lu.lamb_update_reference(ref_p, grads, ref_m, ref_v, norm=ref_norm,
+                             max_norm=LAMB_MAX_NORM, **hyper)
+    torch.cuda.synchronize()
+    norm_err = abs(norm.item() / ref_norm.item() - 1)
+    p_share = max(((p.detach() - r).abs()
+                   / (1e-5 * (r - r0).abs().max() + 4 * 2.0**-23 * r.abs() + 1e-30)).max().item()
+                  for p, r, r0 in zip(params, ref_p, start))
     if launches != 3 or norm_err > 1e-5 or p_share > 1.0:
         raise AssertionError(f"lamb_update: launches {launches}, norm rel err {norm_err}, "
                              f"worst share of the p tolerance {p_share}")
@@ -561,15 +485,16 @@ def phase_lamb(card: str):
             fn()
         torch.cuda.synchronize()
         host_ms[name] = 1e3 * (time.perf_counter() - t0) / n
-    row = dict(leaves=len(params), params=numel, chunk=lu.CHUNK, launches=launches,
+    row = dict(leaves=len(params), params=numel, chunk=lu.CHUNK,
                max_rel_err=norm_err, p_tolerance_share=p_share, ms=chunk_ms[lu.CHUNK],
                plain_ms=plain_ms, library_ms=None, chunk_ms=chunk_ms,
-               host_ms=host_ms["kernel"], plain_host_ms=host_ms["plain"])
-    row["bound_ms"], row["bound_by"] = lamb_bound(numel, clip=True)
+               host_ms=host_ms["kernel"], plain_host_ms=host_ms["plain"],
+               bound_ms=lamb_bound_ms(numel))
     print(f"[kernel] lamb_update {json.dumps(row)} card={card}", flush=True)
     del params, grads, opt, ref_p, ref_m, ref_v, tensors
     torch.cuda.empty_cache()
     return row
+
 
 def small_config(**kw):
     from semantic_abstraction_tpu_torch.clip import ClipConfig
@@ -746,73 +671,32 @@ def phase_bf16_vs_f32(card: str, label: str, forward_loss, cfg, model, batch,
 
 
 def phase_ovssc(card: str):
-    """The OVSSC train step at full width through the runtime's entry
-    points (bench_train.py's workload)."""
+    """The OVSSC net at full width through the runtime's entry points
+    (bench_train.py's workload): bf16 against f32, then a bf16 eval step.
+    The cell ``ovssc-train-resident`` times its train step."""
     import torch
 
     from semantic_abstraction_tpu_torch.models import SemAbs3DConfig, init_net
-    from semantic_abstraction_tpu_torch.ops.channel_moments import (
-        channel_moments, channel_moments_backward)
-    from semantic_abstraction_tpu_torch.ops.fused_mha import fused_mha
-    from semantic_abstraction_tpu_torch.ops.lamb_update import global_grad_norm, lamb_update_
-    from semantic_abstraction_tpu_torch.runtime import (
-        init_train_state, make_eval_step, make_optimizer, make_train_step,
-        ovssc_forward_loss)
+    from semantic_abstraction_tpu_torch.runtime import make_eval_step, ovssc_forward_loss
 
     cfg = SemAbs3DConfig()
     t0 = time.perf_counter()
-    tx = make_optimizer(num_training_steps=1000)
-    state = init_train_state(init_net(0, cfg), tx)
-    step = make_train_step(ovssc_forward_loss, cfg, tx, compute_dtype=torch.bfloat16)
+    model = init_net(0, cfg)
     batch = ovssc_batch(np.random.RandomState(0), 1, 4, 80000, 400000, "cuda")
     torch.cuda.synchronize()
     print(f"[ovssc] weights and batch built in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    phase_bf16_vs_f32(card, "ovssc-bf16", ovssc_forward_loss, cfg, state.model, batch)
+    phase_bf16_vs_f32(card, "ovssc-bf16", ovssc_forward_loss, cfg, model, batch)
 
-    t0 = time.perf_counter()
-    state, stats = step(state, batch)
-    torch.cuda.synchronize()
-    print(f"[ovssc] warm-up step {time.perf_counter() - t0:.3f} s loss "
-          f"{stats['loss'].item()}", flush=True)
-
-    torch.cuda.reset_peak_memory_stats()
-    fused_mha.launches = channel_moments.launches = channel_moments_backward.launches = 0
-    global_grad_norm.launches = lamb_update_.launches = 0
-    times = []
-    for _ in range(TIMED_STEPS):
-        t0 = time.perf_counter()
-        state, stats = step(state, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    launches = {"fused_mha": fused_mha.launches,
-                "channel_moments": channel_moments.launches,
-                "channel_moments_backward": channel_moments_backward.launches,
-                "lamb_update": global_grad_norm.launches + lamb_update_.launches}
-    loss, grad_norm = stats["loss"].item(), stats["grad_norm"].item()
-    peak = torch.cuda.max_memory_allocated() / 1e9
-
-    if not (np.isfinite(loss) and np.isfinite(grad_norm) and grad_norm > 0):
-        raise AssertionError(f"ovssc step: loss {loss} grad_norm {grad_norm}")
-    if launches["channel_moments"] <= 0 or launches["channel_moments_backward"] <= 0:
-        raise AssertionError(f"the OVSSC path left a moments kernel unlaunched: {launches}")
-    if launches["lamb_update"] != 3 * TIMED_STEPS:
-        raise AssertionError(f"the OVSSC step's clip + LAMB took other than 3 launches a "
-                             f"step: {launches}")
     eval_step = make_eval_step(ovssc_forward_loss, cfg, compute_dtype=torch.bfloat16)
     t0 = time.perf_counter()
-    aux = eval_step(state.model, batch)
+    aux = eval_step(model, batch)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     if aux["logits"].shape != (1, 4, 400000) or not torch.isfinite(aux["logits"]).all():
         raise AssertionError(f"eval logits {tuple(aux['logits'].shape)} not finite")
-    print(f"[ovssc] step seconds {times} steps/s {TIMED_STEPS / sum(times)} "
-          f"loss {loss} accuracy {stats['accuracy'].item()} grad_norm {grad_norm} "
-          f"peak mem GB {peak:.2f} launches {launches} channel_moments per step "
-          f"{launches['channel_moments'] / TIMED_STEPS} backward per step "
-          f"{launches['channel_moments_backward'] / TIMED_STEPS} eval step {eval_s:.3f} s "
-          f"(loss {aux['loss'].item()}) card={card}", flush=True)
-    return state, step, batch, launches, sum(times) / len(times)
+    print(f"[ovssc] eval step {eval_s:.3f} s (loss {aux['loss'].item()}) card={card}",
+          flush=True)
 
 
 def small_net_configs():
@@ -1024,7 +908,7 @@ def phase_vool(card: str):
           f"(loss {aux['loss'].item()}); {len(metrics)} metrics at {len(cutoffs)} "
           f"cutoffs in {metrics_s:.3f} s, voxel IoU by cutoff "
           f"{[round(v, 4) for v in best.tolist()]} card={card}", flush=True)
-    return state, step, batch, launches, sum(times) / len(times)
+    return launches, sum(times) / len(times)
 
 
 # the full-width corpus of scripts/bench_train_e2e.py: 480x640 frames,
@@ -1166,7 +1050,7 @@ class MemoryScenes:
         }
 
 
-def phase_loop(card: str, task: str, resident_steps_per_s: float):
+def phase_loop(card: str, task: str, resident_steps_per_s: float = None):
     """The loop users run, at full width, through the port's own
     ``runtime.experiment``: ``build_setup`` (the net of ``--approach
     semantic_abstraction`` at the CLI's defaults, bf16, LAMB on the
@@ -1176,8 +1060,10 @@ def phase_loop(card: str, task: str, resident_steps_per_s: float):
     ``device_batch``, the eval step, ``point_and_voxel_stats`` at the 25
     detailed cutoffs and 32^3 and 64^3 voxels) over 2 batches, then a
     ``latest.ckpt`` round trip into a fresh state, bit for bit.
-    ``resident_steps_per_s`` is the device-resident step rate of the same
-    net from its earlier phase. Returns the moments launches of the loop."""
+    ``resident_steps_per_s``, where given, is the device-resident step rate
+    of the same net from its earlier phase. Returns the moments and the
+    clip + LAMB launches of the epoch (33 + 33 and 3 a step) and its
+    steps."""
     import torch
 
     from semantic_abstraction_tpu_torch import native
@@ -1186,6 +1072,7 @@ def phase_loop(card: str, task: str, resident_steps_per_s: float):
     from semantic_abstraction_tpu_torch.models import init_net
     from semantic_abstraction_tpu_torch.ops.channel_moments import (
         channel_moments, channel_moments_backward)
+    from semantic_abstraction_tpu_torch.ops.lamb_update import global_grad_norm, lamb_update_
     from semantic_abstraction_tpu_torch.runtime import experiment as exp
     from semantic_abstraction_tpu_torch.runtime import (
         eval_cutoffs_for, load_checkpoint, make_eval_step, save_checkpoint)
@@ -1207,17 +1094,21 @@ def phase_loop(card: str, task: str, resident_steps_per_s: float):
     with tempfile.TemporaryDirectory() as log_dir:
         torch.cuda.reset_peak_memory_stats()
         channel_moments.launches = channel_moments_backward.launches = 0
+        global_grad_norm.launches = lamb_update_.launches = 0
         state = exp.train(args, setup, log_dir=log_dir, max_steps_per_epoch=LOOP_STEPS,
                           timings=timings)
         launches = {"channel_moments": channel_moments.launches,
-                    "channel_moments_backward": channel_moments_backward.launches}
+                    "channel_moments_backward": channel_moments_backward.launches,
+                    "lamb_update": global_grad_norm.launches + lamb_update_.launches}
         peak = torch.cuda.max_memory_allocated() / 1e9
         (t,) = timings
         if t["steps"] != LOOP_STEPS or not np.isfinite(t["loss"]):
             raise AssertionError(f"loop-{task}: train epoch {t}")
         per_step = {k: n / t["steps"] for k, n in launches.items()}
-        if per_step != {"channel_moments": 33.0, "channel_moments_backward": 33.0}:
-            raise AssertionError(f"loop-{task}: moments launches a step {per_step}")
+        if per_step != {"channel_moments": 33.0, "channel_moments_backward": 33.0,
+                        "lamb_update": 3.0}:
+            raise AssertionError(f"loop-{task}: moments and clip + LAMB launches a step "
+                                 f"{per_step}")
 
         # H2D: device_batch of one loader batch, pinned and non-blocking,
         # to the synchronize; the mean of 5 after one warm-up
@@ -1272,13 +1163,16 @@ def phase_loop(card: str, task: str, resident_steps_per_s: float):
             if sa["step"] != sb["step"] or not all(
                     torch.equal(sa[k], sb[k]) for k in ("exp_avg", "exp_avg_sq")):
                 raise AssertionError(f"loop-{task} checkpoint: LAMB state differs")
+    resident = ("" if resident_steps_per_s is None else
+                f" (device-resident {resident_steps_per_s} steps/s in its phase)")
     print(f"[loop-{task}] {t['steps']} loader-fed steps in {t['wall_s']:.3f} s = "
-          f"{t['steps'] / t['wall_s']} steps/s (device-resident {resident_steps_per_s} "
-          f"steps/s in its phase); waited on the loader {t['loader_wait_s']:.3f} s = "
+          f"{t['steps'] / t['wall_s']} steps/s{resident}; waited on the loader "
+          f"{t['loader_wait_s']:.3f} s = "
           f"{100 * t['loader_wait_s'] / t['wall_s']:.1f}% of the epoch; device_batch "
           f"{t['device_batch_s']:.3f} s on the host clock; H2D {h2d_ms:.2f} ms a batch "
           f"({nbytes / 1e6:.1f} MB, {nbytes / h2d_ms / 1e6:.2f} GB/s); peak mem GB "
-          f"{peak:.2f}; moments launches a step {per_step}; loss {t['loss']}; eval "
+          f"{peak:.2f}; moments and clip + LAMB launches a step {per_step}; loss "
+          f"{t['loss']}; eval "
           f"{len(outs)} batches in {eval_s:.3f} s, loss {losses}, mean 32^3 voxel IoU by "
           f"cutoff {[round(v, 4) for v in ious.tolist()]}; "
           f"checkpoint round trip bit-equal; native.available() "
@@ -1839,7 +1733,7 @@ def rank_main(mode: str, out_dir: str) -> int:
     return 0
 
 
-def phase_ddp_loop(card: str, resident_steps_per_s: float):
+def phase_ddp_loop(card: str):
     """Phase 16: ``SemAbs3DConfig()`` at --batch_size 4, bf16, through
     ``experiment.train`` as phase 12 drives it, in one rank of a NCCL group
     of world size 1 (the train step under DDP), then one process without a
@@ -1870,8 +1764,8 @@ def phase_ddp_loop(card: str, resident_steps_per_s: float):
                                  f"{b.tolist()} (rtol {tol})")
     print(f"[ddp-nccl] world size 1 over {rank['backend']} on {rank['device']}, batch "
           f"{DDP_BATCH}: {t['steps']} loader-fed steps in {t['wall_s']:.3f} s = "
-          f"{t['steps'] / t['wall_s']} steps/s (device-resident {resident_steps_per_s} "
-          f"steps/s at B = 1 in phase 7); waited on the loader {t['loader_wait_s']:.3f} s; "
+          f"{t['steps'] / t['wall_s']} steps/s; waited on the loader "
+          f"{t['loader_wait_s']:.3f} s; "
           f"peak mem GB {rank['peak_gb']:.2f}; moments launches a step {per_step}; wrote "
           f"{rank['wrote']}; losses {t['losses']} grad norms {t['grad_norms']}; first "
           f"{DDP_COMPARED} steps against one process: losses {single['losses']} grad norms "
@@ -2033,192 +1927,92 @@ def phase_resnet(card: str):
 
 
 def phase_main(card: str):
-    """The image path at full width through the CLI's entry points."""
-    import torch
-
-    from semantic_abstraction_tpu_torch.cli import generate_relevancy as cli
-    from semantic_abstraction_tpu_torch.ops.fused_mha import fused_mha
-
-    args = cli.parser().parse_args(
-        ["image", "--random-weights", "--labels", *HEADLINE_LABELS])
-    t0 = time.perf_counter()
-    sal = cli.build_saliency(args)
-    print(f"[main] weights built in {time.perf_counter() - t0:.1f} s", flush=True)
-    rs = np.random.RandomState(args.seed)
-    img = rs.randint(0, 255, (480, 640, 3), dtype=np.uint8)
-
-    t0 = time.perf_counter()
-    maps = cli.relevancy(sal, img, args)
-    torch.cuda.synchronize()
-    print(f"[main] warm-up image {time.perf_counter() - t0:.3f} s", flush=True)
-
-    fused_mha.launches = 0
-    times = []
-    for i in range(TIMED_IMAGES):
-        args.seed = i + 1
-        t0 = time.perf_counter()
-        maps = cli.relevancy(sal, img, args)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    launches = {"fused_mha": fused_mha.launches}
-
-    if maps.shape != (9, 480, 640) or maps.dtype != torch.float16:
-        raise AssertionError(f"maps {tuple(maps.shape)} {maps.dtype}")
-    if not torch.isfinite(maps).all() or not (maps != 0).any():
-        raise AssertionError("maps are not finite or all zero")
-    if launches["fused_mha"] <= 0:
-        raise AssertionError("the main path launched no fused_mha kernel")
-    maps_per_s = 9 * TIMED_IMAGES / sum(times)
-    print(f"[main] image seconds {times} maps/s {maps_per_s} launches "
-          f"{launches} per image {launches['fused_mha'] / TIMED_IMAGES} "
-          f"peak mem GB {torch.cuda.max_memory_allocated() / 1e9:.2f} "
-          f"card={card}", flush=True)
-
-    # the same image with --compute_dtype float32: K1's f32 body on the path
-    args32 = cli.parser().parse_args(
-        ["image", "--random-weights", "--compute_dtype", "float32",
-         "--labels", *HEADLINE_LABELS])
-    sal32 = cli.build_saliency(args32)
-    t0 = time.perf_counter()
-    cli.relevancy(sal32, img, args32)
-    torch.cuda.synchronize()
-    warm32 = time.perf_counter() - t0
-    fused_mha.launches = 0
-    args32.seed = 1
-    t0 = time.perf_counter()
-    maps32 = cli.relevancy(sal32, img, args32)
-    torch.cuda.synchronize()
-    f32 = {"launches": fused_mha.launches, "seconds": time.perf_counter() - t0}
-    del sal32
-    if maps32.shape != (9, 480, 640):
-        raise AssertionError(f"f32 maps {tuple(maps32.shape)}")
-    if not torch.isfinite(maps32).all() or not (maps32 != 0).any():
-        raise AssertionError("f32 maps are not finite or all zero")
-    if f32["launches"] != launches["fused_mha"] / TIMED_IMAGES:
-        raise AssertionError(f"the f32 image launched fused_mha {f32['launches']} times, "
-                             f"the bf16 images {launches['fused_mha'] / TIMED_IMAGES} an image")
-    print(f"[main] f32 image: warm-up {warm32:.3f} s, timed {f32['seconds']:.3f} s, "
-          f"maps/s {9 / f32['seconds']}, fused_mha launches {f32['launches']} "
-          f"({maps32.dtype}) card={card}", flush=True)
-    return sal, img, args, launches, sum(times) / len(times), f32
-
-
-def phase_vitl(card: str):
-    """The multi-tail path at full width: ViT-L/14 (random weights from
-    seed 0) behind the extractor the CLI builds, through ``relevancy``."""
+    """The image paths at full width through the CLI's entry points,
+    untimed (the cells ``vitb32-relevancy-ours`` and
+    ``vitl14-relevancy-ours`` time them): ViT-B/32 on one image in bf16 and
+    on the same image in f32, then ViT-L/14 (random weights from seed 0,
+    bf16) on it behind the extractor the CLI builds. Maps of the image's
+    shape, finite and not all zero; as many K1 launches in f32 as in bf16;
+    on ViT-L/14, K1 once a head block and K2 once a tail block of each
+    gradcam call. -> (K1 launches of the ViT-B/32 image by dtype, the
+    ViT-L/14 image's K1 and K2 launches and gradcam calls)."""
     import warnings
 
     import torch
 
     from semantic_abstraction_tpu_torch.cli import generate_relevancy as cli
     from semantic_abstraction_tpu_torch.clip import (
-        ClipConfig, ClipSaliency, init_clip_params)
+        ClipConfig, ClipSaliency, init_clip_params, saliency)
     from semantic_abstraction_tpu_torch.ops.cam_accumulate import cam_accumulate
     from semantic_abstraction_tpu_torch.ops.fused_mha import fused_mha
 
-    args = cli.parser().parse_args(
-        ["image", "--random-weights", "--labels", *HEADLINE_LABELS])
+    def check(name, maps):
+        if maps.shape != (9, 480, 640) or maps.dtype != torch.float16:
+            raise AssertionError(f"{name} maps {tuple(maps.shape)} {maps.dtype}")
+        if not torch.isfinite(maps).all() or not (maps != 0).any():
+            raise AssertionError(f"{name} maps are not finite or all zero")
+
+    launches = {}
+    for dtype in ("bfloat16", "float32"):
+        args = cli.parser().parse_args(
+            ["image", "--random-weights", "--compute_dtype", dtype,
+             "--labels", *HEADLINE_LABELS])
+        t0 = time.perf_counter()
+        sal = cli.build_saliency(args)
+        img = np.random.RandomState(args.seed).randint(0, 255, (480, 640, 3), dtype=np.uint8)
+        fused_mha.launches = 0
+        maps = cli.relevancy(sal, img, args)
+        torch.cuda.synchronize()
+        launches[dtype] = fused_mha.launches
+        del sal
+        check(dtype, maps)
+        print(f"[main] {dtype} image: weights and the image in "
+              f"{time.perf_counter() - t0:.1f} s, fused_mha launches {launches[dtype]} "
+              f"card={card}", flush=True)
+    if launches["bfloat16"] <= 0 or launches["float32"] != launches["bfloat16"]:
+        raise AssertionError(f"fused_mha launches an image by dtype: {launches}")
+    torch.cuda.empty_cache()
+
+    args = cli.parser().parse_args(["image", "--random-weights", "--labels", *HEADLINE_LABELS])
     cfg = ClipConfig(**VIT_L_14)
     t0 = time.perf_counter()
     # what build_saliency does with a --clip-ckpt of this shape
     sal = ClipSaliency(init_clip_params(0, cfg, device="cuda"), cfg,
-                       compute_dtype=torch.bfloat16,
-                       tile_batch_size=args.tile_batch_size)
-    torch.cuda.synchronize()
-    print(f"[vitl14] weights built in {time.perf_counter() - t0:.1f} s "
-          f"({sum(p.numel() for p in sal.model.parameters())} parameters, "
-          f"{cfg.vision_layers - sal.num_layers - 1} tail blocks, T "
-          f"{cfg.vision_tokens})", flush=True)
+                       compute_dtype=torch.bfloat16, tile_batch_size=args.tile_batch_size)
+    n_tail = cfg.vision_layers - sal.num_layers - 1
     img = np.random.RandomState(args.seed).randint(0, 255, (480, 640, 3), dtype=np.uint8)
+    calls = 0
+    gradcam = saliency.gradcam
+
+    def counted(*a, **kw):
+        nonlocal calls
+        calls += 1
+        return gradcam(*a, **kw)
 
     # a vmap fallback (a per-label loop inside the batched backward) warns
-    t0 = time.perf_counter()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        maps = cli.relevancy(sal, img, args)
-        torch.cuda.synchronize()
-    msgs = sorted({str(w.message)[:160] for w in caught})
-    print(f"[vitl14] warm-up image {time.perf_counter() - t0:.3f} s; "
-          f"{len(caught)} warnings {msgs}", flush=True)
-
-    torch.cuda.reset_peak_memory_stats()
+    saliency.gradcam = counted
     fused_mha.launches = cam_accumulate.launches = 0
-    times = []
-    for i in range(TIMED_VITL_IMAGES):
-        args.seed = i + 1
-        t0 = time.perf_counter()
-        maps = cli.relevancy(sal, img, args)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    launches = {"fused_mha": fused_mha.launches, "cam_accumulate": cam_accumulate.launches}
-    peak = torch.cuda.max_memory_allocated() / 1e9
-
-    if maps.shape != (9, 480, 640) or maps.dtype != torch.float16:
-        raise AssertionError(f"vitl14 maps {tuple(maps.shape)} {maps.dtype}")
-    if not torch.isfinite(maps).all() or not (maps != 0).any():
-        raise AssertionError("vitl14 maps are not finite or all zero")
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"the ViT-L/14 path left a kernel unlaunched: {launches}")
-    per_image = {k: n / TIMED_VITL_IMAGES for k, n in launches.items()}
-    print(f"[vitl14] image seconds {times} seconds/image {sum(times) / len(times)} "
-          f"maps/s {9 * TIMED_VITL_IMAGES / sum(times)} peak mem GB {peak:.2f} "
-          f"launches {launches} per image {per_image} card={card}", flush=True)
-    return sal, img, args, launches, sum(times) / len(times)
-
-
-def phase_profile(card: str, label: str, run, unprofiled_s: float, port_kernels,
-                  top: int = 12, nodes=()):
-    """Device time by kernel over one ``run()`` (torch.profiler), and the
-    share of the path's own kernels (device function names in
-    ``port_kernels``) and of the autograd nodes named in ``nodes`` (every
-    device kernel each launched). The busy share is given against the
-    profiled wall and against ``unprofiled_s``, the mean unprofiled time of
-    the same work (the profiler slows the host)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    # device kernels only: a range such as Optimizer.step is also reported
-    # on the device timeline, as a user annotation spanning its kernels
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-    attr = "self_device_time_total"
-    total_us = sum(getattr(e, attr) for e in events)
-    if total_us <= 0:
-        print(f"[profile] {label}: device time not measured (no CUDA events) "
-              f"card={card}")
-        return
-    busy = total_us / 1e6
-    print(f"[profile] {label}: wall {wall:.3f} s (profiled), device busy "
-          f"{busy:.3f} s = {100 * busy / wall:.1f}% of the profiled wall, "
-          f"{100 * busy / unprofiled_s:.1f}% of the unprofiled time "
-          f"{unprofiled_s:.3f} s; {sum(e.count for e in events)} device kernels "
-          f"of {len(events)} names card={card}")
-    for e in sorted(events, key=lambda e: -getattr(e, attr))[:top]:
-        us = getattr(e, attr)
-        print(f"[profile]   {100 * us / total_us:5.1f}%  {us / 1e3:9.2f} ms  "
-              f"x{e.count:<6d} {e.key[:90]}")
-    for name in port_kernels:
-        mine = [e for e in events if name in e.key]
-        us = sum(getattr(e, attr) for e in mine)
-        print(f"[profile]   port kernel {name}: {us / 1e3:.3f} ms in "
-              f"{sum(e.count for e in mine)} launches = {100 * us / total_us:.2f}% "
-              f"of device time")
-    for name in nodes:
-        # the node and the engine's evaluate_function around it: the
-        # largest holds every kernel the node launched
-        mine = [e for e in prof.key_averages()
-                if e.device_type != torch.autograd.DeviceType.CUDA and name in e.key]
-        us = max((getattr(e, "device_time_total", 0.0) for e in mine), default=0.0)
-        print(f"[profile]   autograd node {name}: {us / 1e3:.3f} ms of device time in "
-              f"{max((e.count for e in mine), default=0)} calls = "
-              f"{100 * us / total_us:.2f}% of device time")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            maps = cli.relevancy(sal, img, args)
+            torch.cuda.synchronize()
+    finally:
+        saliency.gradcam = gradcam
+    vitl = {"fused_mha": fused_mha.launches, "cam_accumulate": cam_accumulate.launches,
+            "gradcam_calls": calls}
+    del sal
+    check("vitl14", maps)
+    per_call = {"fused_mha": cfg.vision_layers - n_tail, "cam_accumulate": n_tail}
+    if n_tail < 2 or calls <= 0 or any(vitl[k] != n * calls for k, n in per_call.items()):
+        raise AssertionError(f"vitl14: {n_tail} tail blocks, launches {vitl}, "
+                             f"expected {per_call} a gradcam call")
+    msgs = sorted({str(w.message)[:160] for w in caught})
+    print(f"[main] vitl14 bf16 image: weights and the image in "
+          f"{time.perf_counter() - t0:.1f} s, {n_tail} tail blocks, T {cfg.vision_tokens}, "
+          f"launches {vitl} ({per_call} a gradcam call); {len(caught)} warnings {msgs} "
+          f"card={card}", flush=True)
+    return launches, vitl
 
 
 def main() -> int:
@@ -2231,7 +2025,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     # the port's package, from this checkout
-    from semantic_abstraction_tpu_torch.cli import generate_relevancy as cli
     from semantic_abstraction_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2251,7 +2044,7 @@ def main() -> int:
     from semantic_abstraction_tpu_torch.ops.cam_accumulate import cam_accumulate
     from semantic_abstraction_tpu_torch.ops.fused_mha import fused_mha
 
-    rows, ragged = phase_kernel(card)
+    rows = phase_kernel(card)
     crows = phase_cam(card)
     mrows, brows = phase_moments(card)
     lamb_row = phase_lamb(card)
@@ -2259,29 +2052,14 @@ def main() -> int:
     phase_small(card, "small-multitail", small_config(vision_layers=4, vision_patch_size=14),
                 0, (fused_mha, cam_accumulate))
     phase_small_ovssc(card)
-    sal, img, args, launches, image_s, f32_image = phase_main(card)
-    phase_profile(card, "relevancy image", lambda: cli.relevancy(sal, img, args),
-                  image_s, ("fused_mha_",))
-    del sal
+    image_launches, vitl_launches = phase_main(card)
     torch.cuda.empty_cache()
-    sal, img, args, vitl_launches, vitl_s = phase_vitl(card)
-    phase_profile(card, "vit-l/14 image", lambda: cli.relevancy(sal, img, args),
-                  vitl_s, ("fused_mha_", "cam_accumulate_"), top=20)
-    del sal
-    torch.cuda.empty_cache()
-    state, step, batch, ovssc_launches, step_s = phase_ovssc(card)
-    phase_profile(card, "ovssc train step", lambda: step(state, batch), step_s,
-                  ("moments_fwd", "moments_bwd"), nodes=("_ChannelMomentsBackward",))
-    del state, step, batch
+    phase_ovssc(card)
     torch.cuda.empty_cache()
     phase_small_nets(card)
-    state, step, batch, vool_launches, vool_s = phase_vool(card)
-    phase_profile(card, "vool train step", lambda: step(state, batch), vool_s,
-                  ("moments_fwd", "moments_bwd"), top=16, nodes=("_ChannelMomentsBackward",))
-    del state, step, batch
+    vool_launches, vool_s = phase_vool(card)
     torch.cuda.empty_cache()
-    loop = {task: phase_loop(card, task, 1.0 / s)
-            for task, s in (("ovssc", step_s), ("vool", vool_s))}
+    loop = {"ovssc": phase_loop(card, "ovssc"), "vool": phase_loop(card, "vool", 1.0 / vool_s)}
     torch.cuda.empty_cache()
     writer_launches, _ = phase_writer(card)
     torch.cuda.empty_cache()
@@ -2292,31 +2070,31 @@ def main() -> int:
         for task in ("ovssc", "vool"):
             inference[task], _ = phase_inference(card, task, scene, os.path.join(tmp, "vis"))
             torch.cuda.empty_cache()
-    ddp_launches, ddp_steps = phase_ddp_loop(card, 1.0 / step_s)
+    ddp_launches, ddp_steps = phase_ddp_loop(card)
     gloo_launches = phase_ddp_gloo(card)
     torch.cuda.empty_cache()
     vf_launches = phase_resnet(card)
 
     # the kernels line. fused_mha: bf16 at the ViT-B/32 path's dominant
     # chunk (48 rows, T = 50), errors over every bf16 shape of the two
-    # relevancy paths (relative to max |out|), launches on the ViT-B/32
-    # path; the same at the ViT-L/14 chunk (T = 257) under "vit_l14".
-    # cam_accumulate: bf16 at the ViT-L/14 chunk (L = 9, B = 48, H = 16,
-    # T = 257), errors over its bf16 shapes (relative to |R| + |cam| @ |R|,
-    # tolerance 1e-5), launches on the ViT-L/14 path; no single PyTorch
-    # call computes it. channel_moments: bf16 at level 0 (4, 16, 128^3),
-    # errors over the 22 bf16 UNet shapes at B = 4 and 8 (relative to the
-    # sum of |x| for s1 and to s2, tolerance 1e-5; the absolute error is one
-    # of sums near 1e7); launches on the OVSSC path's timed steps, and under "vool" the
-    # VOOL path's with the time at its level-0 shape (8, 16, 128^3). Its
-    # "backward" entry: the backward kernel likewise (bit-equal to its plain
-    # version, so max_abs_err 0; the library call is one torch.addcmul into
-    # a tensor of x's dtype).
+    # relevancy paths (relative to max |out|), launches of phase 4's ViT-B/32
+    # image; the time at the ViT-L/14 chunk (T = 257) and the launches of
+    # phase 4's ViT-L/14 image under "vit_l14". cam_accumulate: bf16 at the
+    # ViT-L/14 chunk (L = 9, B = 48, H = 16, T = 257), errors over its bf16
+    # shapes (relative to |R| + |cam| @ |R|, tolerance 1e-5), launches of
+    # phase 4's ViT-L/14 image; no single PyTorch call computes it. channel_moments:
+    # bf16 at level 0 (4, 16, 128^3), errors over the 22 bf16 UNet shapes at
+    # B = 4 and 8 (relative to the sum of |x| for s1 and to s2, tolerance
+    # 1e-5; the absolute error is one of sums near 1e7); under "vool" the
+    # VOOL path's launches with the time at its level-0 shape (8, 16,
+    # 128^3). Its "backward" entry: the backward kernel likewise (bit-equal
+    # to its plain version, so max_abs_err 0; the library call is one
+    # torch.addcmul into a tensor of x's dtype).
     def pick(rs, **kw):
         return next(r for r in rs if all(r[k] == v for k, v in kw.items()))
 
     def timing(r):
-        return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
 
     main = pick(rows, dtype="bfloat16", B=48, T=50)
     vf = pick(rows, dtype="bfloat16", B=1, T=50)
@@ -2338,11 +2116,13 @@ def main() -> int:
         "name": "fused_mha", "route": "cuda",
         "source": "semantic_abstraction_tpu_torch/ops/csrc/fused_mha.cu",
         "replaces": "semantic_abstraction_tpu/ops/pallas_kernels.py:103",
-        "launches": launches["fused_mha"],
+        "launches": image_launches["bfloat16"],
         "max_abs_err": max(r["max_abs_err"] for r in path_rows),
         "max_rel_err": max(r["max_rel_err"] for r in path_rows),
         **timing(main),
-        "vit_l14": {"launches": vitl_launches["fused_mha"], **timing(vitl)},
+        "vit_l14": {"launches": vitl_launches["fused_mha"],
+                    "per_call": vitl_launches["fused_mha"] / vitl_launches["gradcam_calls"],
+                    **timing(vitl)},
         # the writer's pipelined scenes and each inference run's relevancy
         "writer": {"launches": writer_launches,
                    "per_scene": writer_launches / WRITER_SCENES},
@@ -2351,18 +2131,18 @@ def main() -> int:
         # get_visual_feature at ViT-B/32 (phase 18): one image, B = 1, T = 50
         "visual_feature": {"launches": vf_launches, "per_call": vf_launches / GVF_CALLS,
                            "max_abs_err": vf["max_abs_err"], **timing(vf)},
-        # the f32 body: launches and seconds of phase 4's f32 ViT-B/32
-        # image, errors over phase 2's ten f32 shapes (and, apart, its twelve
-        # ragged token counts), the time at the dominant chunk (48, 50)
-        "float32": {"launches": f32_image["launches"], "image_s": f32_image["seconds"],
+        # the f32 body: launches of phase 4's f32 ViT-B/32 image, errors
+        # over phase 2's ten f32 shapes, the time at the dominant chunk (48, 50)
+        "float32": {"launches": image_launches["float32"],
                     "max_abs_err": max(r["max_abs_err"] for r in f32_rows),
                     "max_rel_err": max(r["max_rel_err"] for r in f32_rows),
-                    "ragged_max_abs_err": ragged["float32"], **timing(f32_main)},
+                    **timing(f32_main)},
     }, {
         "name": "cam_accumulate", "route": "cuda",
         "source": "semantic_abstraction_tpu_torch/ops/csrc/cam_accumulate.cu",
         "replaces": "semantic_abstraction_tpu/ops/pallas_kernels.py:34",
         "launches": vitl_launches["cam_accumulate"],
+        "per_call": vitl_launches["cam_accumulate"] / vitl_launches["gradcam_calls"],
         "max_abs_err": max(r["max_abs_err"] for r in cbf16),
         "max_rel_err": max(r["max_rel_err"] for r in cbf16),
         **timing(cmain),
@@ -2370,7 +2150,6 @@ def main() -> int:
         "name": "channel_moments", "route": "cuda",
         "source": "semantic_abstraction_tpu_torch/ops/csrc/channel_moments.cu",
         "replaces": "semantic_abstraction_tpu/ops/pallas_kernels.py:239",
-        "launches": ovssc_launches["channel_moments"],
         "max_abs_err": max(r["max_abs_err"] for r in mbf16),
         "max_rel_err": max(r["max_rel_err"] for r in mbf16),
         **timing(mmain),
@@ -2388,7 +2167,6 @@ def main() -> int:
             "name": "channel_moments_backward", "route": "cuda",
             "source": "semantic_abstraction_tpu_torch/ops/csrc/channel_moments.cu",
             "replaces": "semantic_abstraction_tpu/models/unet3d.py:75",
-            "launches": ovssc_launches["channel_moments_backward"],
             "max_abs_err": max(r["max_abs_err"] for r in brows),
             **timing(bmain),
             "vool": {"launches": vool_launches["channel_moments_backward"],
@@ -2414,13 +2192,15 @@ def main() -> int:
     }, {
         # replaces no Pallas kernel: the JAX package leaves optax's clip and
         # LAMB to XLA's fusion. Phase 2's row at SemAbs3DConfig()'s 121
-        # leaves (the clip engaged), launches of phase 7's timed steps
+        # leaves (the clip engaged); launches of phase 12's loader-fed train
+        # epochs of both tasks
         "name": "lamb_update", "route": "cuda",
         "source": "semantic_abstraction_tpu_torch/ops/csrc/lamb_update.cu",
         "replaces": None,
+        "launches": sum(n["lamb_update"] for n, _ in loop.values()),
+        "launches_per_step": (sum(n["lamb_update"] for n, _ in loop.values())
+                              / sum(n for _, n in loop.values())),
         **lamb_row,
-        "launches": ovssc_launches["lamb_update"],
-        "launches_per_step": ovssc_launches["lamb_update"] / TIMED_STEPS,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

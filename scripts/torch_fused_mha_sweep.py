@@ -13,7 +13,7 @@ is not checked). Each build runs nvcc with the build's own flags plus
 the MMAs, by ``cuobjdump``) are printed. Every other variant is checked
 against ``mha_reference`` at the tolerance of ``chip_smoke.py`` (1e-4), and
 each is timed by CUDA graph replays at the relevancy paths' f32 shapes
-beside SDPA and the bound of ``chip_smoke.py``, in two rounds. One JSON
+beside SDPA and the bound of ``benchmark/counts.py``, in two rounds. One JSON
 line a shape; the card's name and power limit close the output. Needs one
 CUDA card.
 """
@@ -31,6 +31,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
+from benchmark.counts import mha_bound_s  # noqa: E402
 from semantic_abstraction_tpu_torch.ops import _build  # noqa: E402
 
 SRC = os.path.join(_build.CSRC_DIR, "fused_mha.cu")
@@ -134,7 +135,7 @@ def main() -> int:
             qh, kh, vh = (a.reshape(b, t, heads, 64).transpose(1, 2) for a in (q, k, v))
             iters = 100 if t <= 64 else 20
             row = {"B": b, "T": t, "W": w,
-                   "bound_ms": chip_smoke.mha_bound(b, t, w, heads, "float32")[0],
+                   "bound_ms": 1e3 * mha_bound_s(b, t, w, heads, "float32"),
                    "sdpa_ms": chip_smoke.time_ms(
                        lambda: F.scaled_dot_product_attention(qh, kh, vh), iters)}
 

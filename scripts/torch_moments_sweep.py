@@ -7,7 +7,7 @@ At the UNet GroupNorm shapes with S >= 32^3 (B = 4 and 8, bf16 and f32),
 the port's forward and backward kernels launched with the plan that
 ``ops/channel_moments.py``'s ``plan`` gives for each ``target_blocks`` and
 ``min_vecs``: device times of CUDA graph replays beside the bounds of
-``chip_smoke.py``, one JSON line each, every launch first checked against
+``benchmark/counts.py``, one JSON line each, every launch first checked against
 the plain versions. The card's name and power limit close the output.
 """
 from __future__ import annotations
@@ -21,6 +21,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
+from benchmark.counts import moments_backward_bound_s, moments_bound_s  # noqa: E402
 
 
 def launchers(cm, p):
@@ -90,9 +91,9 @@ def main() -> int:
                         splits=p.splits, blocks=b * c * p.splits,
                         ms=chip_smoke.time_ms(lambda: forward(x), its),
                         backward_ms=chip_smoke.time_ms(lambda: backward(x, g1, g2), its),
-                        bound_ms=chip_smoke.moments_bound(b, c, s, dname)[0],
-                        backward_bound_ms=chip_smoke.moments_backward_bound(
-                            b, c, s, dname)[0])), flush=True)
+                        bound_ms=1e3 * moments_bound_s(b, c, s, dname),
+                        backward_bound_ms=1e3 * moments_backward_bound_s(
+                            b, c, s, dname))), flush=True)
             del x, ref
             torch.cuda.empty_cache()
     print(card)

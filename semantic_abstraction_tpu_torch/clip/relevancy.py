@@ -10,8 +10,8 @@ zero ``eps``, so that d(logit)/d(eps) == d(logit)/d(probs).
   num_layers=10, the CLI's path). Only the CLS row of the last block's
   attention matters; its per-label gradient comes from ONE batched autograd
   call over the label axis.
-- ``gradcam`` with more than one tail block (or ``force_general``): the
-  general path (ViT-L/14 at num_layers=10 has 13 tail blocks), one batched
+- ``gradcam`` with more than one tail block: the general path (ViT-L/14
+  at num_layers=10 has 13 tail blocks), one batched
   backward through the tail over the labels, then for each tail block the
   accumulation R <- R + mean_heads(relu(grad * attn)) @ R through
   ``ops.cam_accumulate`` (the CUDA kernel on the card, its plain version on
@@ -133,8 +133,7 @@ def _gradcam_single_tail(visual, x_mid, zeroshot_weights, cfg: ClipConfig,
 
 def gradcam(visual, tiles: torch.Tensor, zeroshot_weights: torch.Tensor,
             cfg: ClipConfig, num_layers: int = 10,
-            positive_attn_only: bool = True, compute_dtype=torch.float32,
-            force_general: bool = False) -> torch.Tensor:
+            positive_attn_only: bool = True, compute_dtype=torch.float32) -> torch.Tensor:
     """Relevancy maps for a batch of tiles against a batch of labels.
 
     tiles: (B, 3, R, R) preprocessed pixels. zeroshot_weights: (E, L).
@@ -149,7 +148,7 @@ def gradcam(visual, tiles: torch.Tensor, zeroshot_weights: torch.Tensor,
         x_mid = _vit_head(visual, tiles, cfg, compute_dtype, n_head)
     # the tail's span also holds its function's return
     with trace.span("sa.relevancy.tail"):
-        if n_tail == 1 and not force_general:
+        if n_tail == 1:
             return _gradcam_single_tail(visual, x_mid, zeroshot_weights, cfg, n_head,
                                         positive_attn_only, compute_dtype)
         return _gradcam_general_tail(visual, x_mid, zeroshot_weights, cfg, n_head,

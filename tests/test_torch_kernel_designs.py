@@ -160,10 +160,10 @@ def tile_walk_mha_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: 
 
 
 F32 = dict(atol=1e-4, rtol=1e-4)
-# chip_smoke.py's ragged token counts (every edge of the query and key
-# tiles up to the 2048-token bound), at B = 1 and a narrow width; and the
-# relevancy paths' shapes (ViT-B/32 at T = 50, ViT-L/14 at T = 257 and 577)
-# cut to small B
+# the token counts of RAGGED_SHAPES in tests/test_torch_fused_mha_card.py
+# (every edge of the query and key tiles up to the 2048-token bound), at
+# B = 1 and a narrow width; and the relevancy paths' shapes (ViT-B/32 at
+# T = 50, ViT-L/14 at T = 257 and 577) cut to small B
 RAGGED_TOKENS = (1, 16, 17, 50, 63, 64, 65, 197, 256, 257, 577, 2048)
 F32_PATH_SHAPES = [(2, 50, 768), (2, 257, 1024), (1, 577, 1024)]
 

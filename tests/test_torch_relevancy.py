@@ -45,13 +45,22 @@ def test_gradcam_matches_jax(setup, num_layers, positive):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
 
+def _general_tail(visual, tiles, zw, cfg, num_layers, positive):
+    """The general tail on the head's output, at any number of tail blocks:
+    the oracle of the closed form."""
+    n_head = num_layers + 1
+    with torch.no_grad():
+        x_mid = tr._vit_head(visual, tiles, cfg, torch.float32, n_head)
+    return tr._gradcam_general_tail(visual, x_mid, zw, cfg, n_head,
+                                    cfg.vision_layers - n_head, positive, torch.float32)
+
+
 @pytest.mark.parametrize("positive", [True, False])
 def test_closed_form_equals_general_path(setup, positive):
     _, _, model, cfg_t, tiles, zw = setup
     args = (model.visual, torch.as_tensor(tiles), torch.as_tensor(zw), cfg_t)
     closed = tr.gradcam(*args, num_layers=1, positive_attn_only=positive)
-    general = tr.gradcam(*args, num_layers=1, positive_attn_only=positive,
-                         force_general=True)
+    general = _general_tail(*args, num_layers=1, positive=positive)
     torch.testing.assert_close(closed, general, **F32)
 
 
