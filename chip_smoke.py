@@ -25,7 +25,11 @@ are unused):
    and B = 8 (VOOL), the forward at B = 1 (the inference paths);
    ``lamb_update`` (the clip's norm and LAMB, replacing no Pallas kernel)
    at ``SemAbs3DConfig()``'s 121 leaves, its kernels at four chunk sizes
-   and the host-clock ms of one clip + step beside the plain version's.
+   and the host-clock ms of one clip + step beside the plain version's;
+   ``tail_backward``'s LayerNorm and quick-GELU backward (replacing no
+   Pallas kernel) at the ViT-L/14 cell's tile chunks of 12 and 105, beside
+   a label's share of autograd's batched backward through the composite
+   function and of the route's.
    Each timed shape is first read once against the plain version at the
    card test's tolerance, so that no wrong kernel is timed (``cam_accumulate``
    also with the stride-0 identity R of the gradcam's first step); and both
@@ -47,7 +51,8 @@ are unused):
    body, which no cell runs), then ViT-L/14 (random weights from seed 0,
    bf16, the general tail of 13 blocks at T = 257) on it: maps of the
    image's shape, finite and not all zero, as many K1 launches in f32 as in
-   bf16, and on ViT-L/14 11 K1 and 13 K2 launches a gradcam call;
+   bf16, and on ViT-L/14 11 K1 and 13 K2 launches a gradcam call, and 25
+   LayerNorm and 13 quick-GELU backward launches a label;
 7. the OVSSC net at full width: ``SemAbs3DConfig()`` (128^3 voxels, 16
    channels, f_maps 16, 6 levels, 4 patches), random weights from seed 0,
    the ``bench_train.py`` batch from numpy seed 0 (80,000 input points, 4 x
@@ -494,6 +499,108 @@ def phase_lamb(card: str):
     del params, grads, opt, ref_p, ref_m, ref_v, tensors
     torch.cuda.empty_cache()
     return row
+
+
+# the vitl14-relevancy-ours cell's smallest and largest tile chunks
+TAIL_CHUNKS = (12, 105)
+TAIL_LABELS = 9
+
+
+def tail_backward_bound_ms(numel: int, dtype) -> float:
+    """Least ms of one label's LayerNorm or quick-GELU backward over
+    ``numel`` elements: g and x read and dx written once at
+    ``benchmark/counts.py``'s HBM rate (the LayerNorm's per-row mean and
+    1/std and its scale are under 0.3% more; a few flops an element)."""
+    import torch
+
+    from benchmark.counts import HBM_BYTES_PER_S
+
+    return 1e3 * 3 * numel * torch.empty((), dtype=dtype).element_size() / HBM_BYTES_PER_S
+
+
+def profiled_device_ms(fn, iters: int) -> float:
+    """Mean device time of one ``fn`` call, the sum of its kernels' times
+    in the torch profiler: for calls that a CUDA graph does not capture
+    (autograd's batched backward)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3 / iters
+
+
+def phase_tail_backward(card: str):
+    """The LayerNorm and quick-GELU backward kernels (``ops/tail_backward``,
+    replacing no Pallas kernel) at the ViT-L/14 cell's tile chunks
+    ``TAIL_CHUNKS``, T = 257, the LayerNorm at W = 1024 and the GELU at its
+    input's 4096, bf16 and f32: each read once against its plain version at
+    the card test's tolerance (the error's largest share of it is printed),
+    then device ms of one label's launch and of the plain version (CUDA
+    graph replays), and a label's share of one batched backward over
+    ``TAIL_LABELS`` labels as the general tail runs it (``is_grads_batched``,
+    the profiler's kernel times): autograd's chain through the composite
+    function, and the route (the kernel once a label and the legacy vmap's
+    stack of the labels' results). Returns the rows."""
+    import torch
+
+    from semantic_abstraction_tpu_torch.clip import model as tm
+    from semantic_abstraction_tpu_torch.ops import tail_backward as tb
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        for b in TAIL_CHUNKS:
+            for name in ("layer_norm", "quick_gelu"):
+                w = 1024 if name == "layer_norm" else 4096
+                x = (2 * torch.randn(b, 257, w, device="cuda", generator=gen) + 0.5).to(dtype)
+                g9 = torch.randn(TAIL_LABELS, b, 257, w, device="cuda", generator=gen).to(dtype)
+                scale = 1 + 0.3 * torch.randn(w, device="cuda", generator=gen)
+                bias = 0.1 * torch.randn(w, device="cuda", generator=gen)
+                if name == "layer_norm":
+                    _, mean, rstd = tm._layer_norm(x, scale, bias, 1e-5)
+                    args = (g9[0], x, mean, rstd, scale)
+                    kernel, plain = tb.layer_norm_backward, tb.layer_norm_backward_reference
+                    composite = lambda a: tm.layer_norm(a, scale, bias)  # noqa: E731
+                    routed = lambda a: tm._LayerNorm.apply(a, scale, bias, 1e-5)  # noqa: E731
+                else:
+                    args = (g9[0], x)
+                    kernel, plain = tb.quick_gelu_backward, tb.quick_gelu_backward_reference
+                    composite, routed = tm.quick_gelu, tm._QuickGelu.apply
+                out, ref = kernel(*args).float(), plain(*args).float()
+                torch.cuda.synchronize()
+                rel = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
+                share = ((out - ref).abs() / (rel * ref.abs()
+                         + 1e-5 * ref.abs().amax(dim=-1, keepdim=True))).max().item()
+                if not share <= 1.0:
+                    raise AssertionError(f"{name}_backward {dname} B={b}: error "
+                                         f"{share} of the tolerance")
+                del out, ref
+                xr = x.detach().requires_grad_()
+                y_comp, y_route = composite(xr), routed(xr)
+
+                def batched(y):
+                    torch.autograd.grad(y, xr, g9, is_grads_batched=True, retain_graph=True)
+
+                row = dict(kernel=f"{name}_backward", dtype=dname, B=b, T=257, W=w,
+                           tolerance_share=share,
+                           ms=time_ms(lambda: kernel(*args), 20),
+                           plain_ms=time_ms(lambda: plain(*args), 5),
+                           autograd_ms=profiled_device_ms(lambda: batched(y_comp), 3)
+                           / TAIL_LABELS,
+                           route_ms=profiled_device_ms(lambda: batched(y_route), 3)
+                           / TAIL_LABELS,
+                           library_ms=None, bound_ms=tail_backward_bound_ms(x.numel(), dtype))
+                rows.append(row)
+                print(f"[kernel] tail_backward {json.dumps(row)} card={card}", flush=True)
+                del x, g9, xr, y_comp, y_route, args
+                torch.cuda.empty_cache()
+    return rows
 
 
 def small_config(**kw):
@@ -1945,6 +2052,8 @@ def phase_main(card: str):
         ClipConfig, ClipSaliency, init_clip_params, saliency)
     from semantic_abstraction_tpu_torch.ops.cam_accumulate import cam_accumulate
     from semantic_abstraction_tpu_torch.ops.fused_mha import fused_mha
+    from semantic_abstraction_tpu_torch.ops.tail_backward import (
+        layer_norm_backward, quick_gelu_backward)
 
     def check(name, maps):
         if maps.shape != (9, 480, 640) or maps.dtype != torch.float16:
@@ -1989,9 +2098,16 @@ def phase_main(card: str):
         calls += 1
         return gradcam(*a, **kw)
 
-    # a vmap fallback (a per-label loop inside the batched backward) warns
+    # the batched backward runs under the legacy vmap, which runs an op
+    # without a batching rule once a label (the tail_backward ops, by
+    # design); its warning of that is off unless turned on
     saliency.gradcam = counted
-    fused_mha.launches = cam_accumulate.launches = 0
+    kernels = {"fused_mha": fused_mha, "cam_accumulate": cam_accumulate,
+               "layer_norm_backward": layer_norm_backward,
+               "quick_gelu_backward": quick_gelu_backward}
+    for k in kernels.values():
+        k.launches = 0
+    torch._C._debug_only_display_vmap_fallback_warnings(True)
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -1999,15 +2115,20 @@ def phase_main(card: str):
             torch.cuda.synchronize()
     finally:
         saliency.gradcam = gradcam
-    vitl = {"fused_mha": fused_mha.launches, "cam_accumulate": cam_accumulate.launches,
-            "gradcam_calls": calls}
+        torch._C._debug_only_display_vmap_fallback_warnings(False)
+    vitl = {name: k.launches for name, k in kernels.items()}
+    vitl["gradcam_calls"] = calls
     del sal
     check("vitl14", maps)
-    per_call = {"fused_mha": cfg.vision_layers - n_tail, "cam_accumulate": n_tail}
+    # the tail's LayerNorms but the first block's ln_1, and its GELUs, once a label
+    labels = len(HEADLINE_LABELS)
+    per_call = {"fused_mha": cfg.vision_layers - n_tail, "cam_accumulate": n_tail,
+                "layer_norm_backward": (2 * n_tail - 1) * labels,
+                "quick_gelu_backward": n_tail * labels}
     if n_tail < 2 or calls <= 0 or any(vitl[k] != n * calls for k, n in per_call.items()):
         raise AssertionError(f"vitl14: {n_tail} tail blocks, launches {vitl}, "
                              f"expected {per_call} a gradcam call")
-    msgs = sorted({str(w.message)[:160] for w in caught})
+    msgs = sorted({str(w.message)[:110] for w in caught})
     print(f"[main] vitl14 bf16 image: weights and the image in "
           f"{time.perf_counter() - t0:.1f} s, {n_tail} tail blocks, T {cfg.vision_tokens}, "
           f"launches {vitl} ({per_call} a gradcam call); {len(caught)} warnings {msgs} "
@@ -2048,6 +2169,7 @@ def main() -> int:
     crows = phase_cam(card)
     mrows, brows = phase_moments(card)
     lamb_row = phase_lamb(card)
+    trows = phase_tail_backward(card)
     phase_small(card, "small", small_config(), 1, (fused_mha,))
     phase_small(card, "small-multitail", small_config(vision_layers=4, vision_patch_size=14),
                 0, (fused_mha, cam_accumulate))
@@ -2201,7 +2323,20 @@ def main() -> int:
         "launches_per_step": (sum(n["lamb_update"] for n, _ in loop.values())
                               / sum(n for _, n in loop.values())),
         **lamb_row,
-    }]
+    }] + [{
+        # replace no Pallas kernel: the JAX package leaves both backward
+        # passes to XLA. Phase 2's row at the ViT-L/14 cell's largest chunk
+        # (105 tiles) in bf16, errors over its 8 rows (the largest share of
+        # the card test's tolerance); launches of phase 4's ViT-L/14 image
+        "name": name, "route": "cuda",
+        "source": "semantic_abstraction_tpu_torch/ops/csrc/tail_backward.cu",
+        "replaces": None,
+        "launches": vitl_launches[name],
+        "per_call": vitl_launches[name] / vitl_launches["gradcam_calls"],
+        "max_tolerance_share": max(r["tolerance_share"] for r in trows
+                                   if r["kernel"] == name),
+        **timing(pick(trows, kernel=name, dtype="bfloat16", B=max(TAIL_CHUNKS))),
+    } for name in ("layer_norm_backward", "quick_gelu_backward")]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

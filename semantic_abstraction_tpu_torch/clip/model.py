@@ -14,6 +14,9 @@ for one:
 - ``_attention_fast`` is the no-probs path through the fused kernel
   (``ops.fused_mha``): every block of the relevancy head scan and
   ``encode_image``.
+- Where autograd records through a block's LayerNorm or quick-GELU (the
+  general relevancy tail), they run as autograd Functions of the same
+  forward ops whose input gradient is one pass (``ops.tail_backward``).
 - Patch embedding is patchify + matmul, not a convolution (no cuDNN, no
   TF32).
 - ``encode_image`` dispatches on ``ClipConfig.vision_arch``: "vit", or
@@ -31,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_mha import fused_mha
+from ..ops.tail_backward import layer_norm_backward, quick_gelu_backward
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,23 +161,89 @@ class CLIP(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm computed in f32 regardless of activation dtype."""
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                eps: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (``layer_norm``, the (..., 1) f32 mean and 1/std it used)."""
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)
     var = x32.var(dim=-1, keepdim=True, unbiased=False)
-    out = (x32 - mean) * torch.rsqrt(var + eps)
+    rstd = torch.rsqrt(var + eps)
+    out = (x32 - mean) * rstd
     out = out * scale.float() + bias.float()
-    return out.to(x.dtype)
+    return out.to(x.dtype), mean, rstd
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm computed in f32 regardless of activation dtype."""
+    return _layer_norm(x, scale, bias, eps)[0]
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+class _LayerNorm(torch.autograd.Function):
+    """``layer_norm`` (the same ops) whose input gradient is one pass,
+    ``ops.tail_backward.layer_norm_backward``, in place of autograd's f32
+    chain. Saves x in its own dtype, the mean and 1/std."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        out, mean, rstd = _layer_norm(x, scale, bias, eps)
+        ctx.save_for_backward(x, mean, rstd, scale)
+        ctx.bias_dtype = bias.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, rstd, scale = ctx.saved_tensors
+        dx = dscale = dbias = None
+        lead = tuple(range(g.dim() - 1))
+        if ctx.needs_input_grad[0]:
+            dx = layer_norm_backward(g, x, mean, rstd, scale)
+        if ctx.needs_input_grad[1]:
+            dscale = (g.float() * ((x.float() - mean) * rstd)).sum(lead).to(scale.dtype)
+        if ctx.needs_input_grad[2]:
+            dbias = g.float().sum(lead).to(ctx.bias_dtype)
+        return dx, dscale, dbias, None
+
+
+class _QuickGelu(torch.autograd.Function):
+    """``quick_gelu`` (the same ops) whose input gradient is one pass,
+    ``ops.tail_backward.quick_gelu_backward``. Saves x."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return quick_gelu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return quick_gelu_backward(g, x)
+
+
 def _ln(mod: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return layer_norm(x, mod.weight, mod.bias)
+
+
+def _recorded(x: torch.Tensor) -> bool:
+    """Whether autograd records what is computed from ``x``."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _block_ln(mod: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """``_ln`` of a block, through ``_LayerNorm`` where autograd records."""
+    if _recorded(x):
+        return _LayerNorm.apply(x, mod.weight, mod.bias, 1e-5)
+    return _ln(mod, x)
+
+
+def _block_gelu(x: torch.Tensor) -> torch.Tensor:
+    """``quick_gelu`` of a block, through ``_QuickGelu`` where autograd
+    records."""
+    return _QuickGelu.apply(x) if _recorded(x) else quick_gelu(x)
 
 
 def _linear(x: torch.Tensor, mod: nn.Linear) -> torch.Tensor:
@@ -224,13 +294,13 @@ def _block_forward(block, x, num_heads, mask=None, attn_eps=None,
                    need_probs=True):
     """Pre-LN residual attention block. With ``need_probs=False`` (and no
     mask/eps) attention runs through the fused kernel and probs is None."""
-    xn = _ln(block.ln_1, x)
+    xn = _block_ln(block.ln_1, x)
     if not need_probs and mask is None and attn_eps is None:
         attn_out, probs = _attention_fast(block, xn, num_heads), None
     else:
         attn_out, probs = _attention(block, xn, num_heads, mask, attn_eps)
     x = x + attn_out
-    h = quick_gelu(_linear(_ln(block.ln_2, x), block.mlp.c_fc))
+    h = _block_gelu(_linear(_block_ln(block.ln_2, x), block.mlp.c_fc))
     return x + _linear(h, block.mlp.c_proj), probs
 
 

@@ -1,6 +1,7 @@
 """Device ops of the port. The kernel wrappers live in their own modules
-(``ops.fused_mha``, ``ops.channel_moments``, ``ops.cam_accumulate``) and
-are imported where they are used."""
+(``ops.fused_mha``, ``ops.channel_moments``, ``ops.cam_accumulate``,
+``ops.lamb_update``, ``ops.tail_backward``) and are imported where they
+are used."""
 from .fusion import TSDFVolume, get_view_frustum, meshwrite, pcwrite, rigid_transform
 from .geometry import (
     check_pts_in_frustum,

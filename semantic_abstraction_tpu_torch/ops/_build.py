@@ -24,7 +24,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 # every kernel of the port: name -> source under csrc/
-KERNELS = ("fused_mha", "channel_moments", "cam_accumulate", "lamb_update")
+KERNELS = ("fused_mha", "channel_moments", "cam_accumulate", "lamb_update", "tail_backward")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
